@@ -2,7 +2,7 @@
 
 Code written against oKatanaaa/Cython3DModelRenderer imports ``crender.py``
 (pure-NumPy tree) or ``crender.cy`` (compiled tree); both map here onto the
-same TPU-native implementation in ``cython3dmodelrenderer_tpu``. The
+same JAX implementation in ``cython3dmodelrenderer_tpu``. The
 top-level re-export mirrors the reference (``crender/__init__.py:1-2``
 re-exports the py Renderer).
 """

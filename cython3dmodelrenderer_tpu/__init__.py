@@ -1,11 +1,11 @@
-"""cython3dmodelrenderer_tpu — a TPU-native 3D software rasterizer.
+"""cython3dmodelrenderer_tpu — a 3D software rasterizer for the GPU in JAX.
 
 A from-scratch JAX/XLA/Pallas reimplementation of the capability surface of
 oKatanaaa/Cython3DModelRenderer: OBJ/MTL/texture loading, model transforms,
 perspective projection, z-buffered triangle rasterization with per-vertex
 color/normal interpolation, Lambert ("Guro") illumination, and wireframe
-rendering — designed TPU-first (batched matmul geometry, deterministic
-scatter/tile z-resolve instead of locks, device-resident buffers, shardable
+rendering — designed for an accelerator (batched matmul geometry, a
+deterministic lock-free tile z-resolve, device-resident buffers, shardable
 multi-view rendering).
 
 Top-level API mirrors the reference package layout

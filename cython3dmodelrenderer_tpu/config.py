@@ -27,7 +27,8 @@ class RenderConfig:
     z_far: float = 1000.0
     #: depth buffer clear value (reference ``py/renderer.py:20`` uses 1e6)
     z_init: float = 1e6
-    #: rasterizer backend: "auto" picks pallas on TPU, jnp elsewhere
+    #: rasterizer backend: "pallas" (tile kernel), "jnp" (XLA oracle) or
+    #: "auto" (GPU → pallas, CPU → jnp; see ``ops.frame.resolve_backend``)
     backend: str = "auto"
 
     @property

@@ -2,11 +2,11 @@
 
 API-compatible with the reference ``Buffer``
 (``crender/py/data_structures/buffer.py:7-78``): ``get/set_pixel``, ``clear``,
-``get_size``, ``get_image``, ``write_to_file`` (vertical flip on write, OpenCV
-BGR), ``__getitem__``/``__setitem__``.
+``get_size``, ``get_image``, ``write_to_file`` (vertical flip on write, BGR
+PNG like the reference's OpenCV output), ``__getitem__``/``__setitem__``.
 
-TPU-first difference: the backing array is a jnp device buffer that stays on
-the TPU across frames (the reference's Version C keeps persistent C buffers
+Difference from the reference: the backing array is a jnp device buffer that
+stays on the device across frames (the reference's Version C keeps persistent C buffers
 for the same reason — ``crender/cy/.../advanced_pixel_buffer_filler.pyx:65-67``).
 The only host transfer happens in ``write_to_file``/``get_image``. Scalar
 ``set_pixel`` (a host-style convenience used by the wireframe path) uses
@@ -38,10 +38,9 @@ class Buffer:
         """Defer this buffer's contents: ``thunk()`` runs once, on first
         access, and must return the (H, W, dim) array.
 
-        The Renderer serves its z/normal buffers this way: deriving them
-        eagerly costs a full G-buffer emission + unpack per frame, which
-        the common render-then-save-the-image flow never reads — observable
-        behavior is unchanged (any access path settles first).
+        The Renderer serves its z/normal buffers this way, so they read the
+        filler's G-buffers on first access — after any capacity repair of
+        the frame that landed in between (any access path settles first).
         """
         self._pending = thunk
 
@@ -80,12 +79,16 @@ class Buffer:
     # -- reference-compatible API -----------------------------------------
 
     def write_to_file(self, filename: str) -> None:
-        # Row flip on write, like the reference (buffer.py:54-55) — the render
-        # uses a y-up screen space, image files are y-down.
-        import cv2
+        """Write the buffer as a PNG (BGR channel order, like the reference's
+        ``cv2.imwrite``).
+
+        Row flip on write, like the reference (buffer.py:54-55) — the render
+        uses a y-up screen space, image files are y-down.
+        """
+        from ..utils.png import write_png
 
         self._settle()
-        cv2.imwrite(filename, np.asarray(self._buffer)[::-1])
+        write_png(filename, np.asarray(self._buffer)[::-1])
 
     def get_pixel(self, x: int, y: int) -> np.ndarray:
         self._settle()
@@ -112,7 +115,7 @@ class Buffer:
                                 self._init_val, dtype=self._dtype)
 
     # -- persistence (checkpoint/resume — SURVEY §5: the reference only had
-    #    cv2.imwrite of the final frame) ------------------------------------
+    #    an image write of the final frame) ------------------------------------
 
     def save(self, filename: str) -> None:
         """Checkpoint the buffer (lossless, dtype-preserving .npz)."""

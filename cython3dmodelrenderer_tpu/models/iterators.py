@@ -6,7 +6,7 @@ API parity with the reference (``crender/py/triangle_iterator/``):
 each triangle's minimum vertex z — near-to-far painter order,
 ``depth/depth_iterator.py:10-11``).
 
-On TPU the render is batched, so iteration order is expressed as a permutation
+The device render is batched, so iteration order is expressed as a permutation
 array consumed by the batched pipeline (``order_indices``) rather than a
 Python loop; the ``__iter__`` protocol is kept for reference-compatible
 per-triangle use.

@@ -16,8 +16,9 @@ Behavioral parity with the reference loader
   per-triangle texture-coordinate (resp. normal) index table is dropped —
   matching the reference's all-or-nothing accumulation (``model.py:49-57``);
 * ``mtllib`` resolves the material file relative to the OBJ's directory unless
-  absolute, takes the *last* ``map_Kd`` entry, and loads the texture with
-  OpenCV, i.e. **BGR channel order** (``model.py:59-66,102-103,114-116``).
+  absolute, takes the *last* ``map_Kd`` entry, and loads the texture in
+  OpenCV's **BGR channel order** (``model.py:59-66,102-103,114-116``) with
+  the package's PNG reader (``utils/png.py``).
   MTL parse failures print a warning and are otherwise ignored
   (``model.py:107-112``).
 
@@ -132,10 +133,18 @@ def read_material_file(filename: str, origin: str) -> Optional[str]:
 
 
 def read_texture_file(filename: str) -> Optional[np.ndarray]:
-    """Load a texture image in BGR order (OpenCV convention, model.py:114-116)."""
-    import cv2
+    """Load a PNG texture in BGR order (OpenCV convention, model.py:114-116).
 
-    return cv2.imread(filename.strip())
+    Like ``cv2.imread``, a missing or unreadable file yields None (the model
+    renders untextured).
+    """
+    from ..utils.png import read_png
+
+    try:
+        return read_png(filename.strip())
+    except (OSError, ValueError) as e:
+        print(f"warning: could not read texture '{filename.strip()}': {e}")
+        return None
 
 
 def load_obj(filename: str, silent: bool = True,

@@ -1,145 +1,49 @@
-"""Triangle → screen-tile binning (XLA stage feeding the Pallas rasterizer).
+"""Triangle → screen-tile binning (the XLA stage feeding the tile kernel).
 
 The reference parallelizes by OpenMP-threading the triangle loop and locking
-pixels (``pyx:200,233-242``). The TPU formulation inverts control: the image
-is cut into VPU-aligned tiles, and each tile owns the (sorted, fixed-order)
-list of triangles whose clipped ceil-bbox overlaps it. Rasterization then
-needs no locks at all — each tile is written by exactly one grid step.
+pixels (``pyx:200,233-242``). The tile formulation inverts control: the image
+is cut into tiles, and each tile owns the (sorted, fixed-order) list of
+triangles whose clipped ceil-bbox overlaps it. Rasterization then needs no
+locks at all — each tile is written by exactly one kernel program.
 
 Stages (all jit, static shapes):
 
-1. ``plane_data`` — per triangle, precompute the affine coefficients of the
-   three barycentric edge functions ``λ_i(x, y) = A_i·x + B_i·y + C_i``
-   (algebraically identical to the reference's formula at
-   ``py filler:176-178``, divided through by each λ's own denominator) and of
-   the interpolated-depth plane ``z(x, y)``, plus the clipped ceil-bbox.
-   Packed into one (T, ROW_WIDTH) float32 row per triangle so the kernel
-   can DMA a chunk with a single contiguous copy.
+1. ``tile_spans`` — per triangle, the clipped ceil-bbox expressed as a span
+   of tiles (empty for culled or off-screen triangles) and its pair count.
 2. ``bin_pairs`` — expand triangles into (tile, triangle) pairs over their
-   bbox tile span, sort by tile (stable: within a tile, triangle order — and
-   hence depth-tie priority — is preserved), and gather the plane rows into
-   binned order. Capacity is a static bucket; the caller obtains it with
-   ``required_pair_capacity`` (one scalar host sync, bucketed to keep
-   recompiles rare).
+   tile span, sort by tile (stable: within a tile, triangle order — and
+   hence depth-tie priority — is preserved), and return the triangle index
+   of every slot plus each tile's bin start and length. Capacity is a
+   static bucket; pairs past it are dropped, and the caller detects that
+   from the pair total (``sum(counts) > p_cap``).
 """
 from __future__ import annotations
 
-from functools import partial
 import jax
 import jax.numpy as jnp
 
 from ..config import RenderConfig
 from .raster_ref import bbox_ceil
 
-# float32 kernel-row layout (see plane_data): 12 edge/z plane coefs
-# [A0 B0 C0 A1 B1 C1 A2 B2 C2 Az Bz Cz], 4 bbox [xl xr yl yr], then 18
-# attribute-plane coefs (6 channels B G R nx ny nz × [A, B, C]) = 34 live
-# columns (25 in 3-channel lean/fast-shade frames). Rows carry ONLY the
-# live columns — consumers slice (grouped binner) or pad to their own DMA
-# width (un-grouped fallback pads to 128); Mosaic handles non-power-of-two
-# minor dims fine (lane-padded in VMEM). ROW_WIDTH is the historical
-# full-width bound kept for the un-grouped path's docs. (No priority
-# column: depth-tie order is POSITIONAL — bins are sorted by triangle
-# index and the kernels resolve exact z ties by minimum lane/chunk.)
-ROW_WIDTH = 64
-IDX_BBOX = 12          # xl, xr, yl, yr
-IDX_YL = 14
-IDX_YR = 15
-IDX_ATTRS = 16
-N_ATTRS = 6
 
+def tile_spans(tris_screen: jnp.ndarray, active: jnp.ndarray,
+               config: RenderConfig, tile_h: int, tile_w: int):
+    """Per-triangle tile spans of the clipped ceil-bbox.
 
-def plane_data(tris_screen: jnp.ndarray, active: jnp.ndarray,
-               config: RenderConfig, tile_h: int, tile_w: int,
-               colors: jnp.ndarray = None, normals: jnp.ndarray = None):
-    """Per-triangle packed plane rows (geometry + attributes) and tile spans.
-
-    Returns (rows (T, ROW_WIDTH) f32, tx0, cx, ty0, cy (T,) i32 tile spans,
-    counts). Inactive or empty-bbox triangles get a zero tile span.
-    Attribute planes: since every λ is affine in (x, y), so is every
-    interpolated vertex attribute — per channel the triple (A, B, C) with
-    ``value(x, y) = A·x + B·y + C``; the kernel extracts the winning
-    triangle's whole row with one winner-mask matmul and evaluates these at
-    tile end, so no post-pass gather is needed.
+    Returns ``(tx0, cx, ty0, cy, counts)`` int32 (T,) arrays: first tile
+    column, column count, first tile row, row count, and ``cx * cy`` pairs.
+    Inactive or empty-bbox triangles get a zero span.
     """
-    t = tris_screen.shape[0]
-    w, h = config.width, config.height
-    x0, y0 = tris_screen[:, 0, 0], tris_screen[:, 0, 1]
-    x1, y1 = tris_screen[:, 1, 0], tris_screen[:, 1, 1]
-    x2, y2 = tris_screen[:, 2, 0], tris_screen[:, 2, 1]
-    z0, z1, z2 = tris_screen[:, 0, 2], tris_screen[:, 1, 2], tris_screen[:, 2, 2]
-
-    # λ0 = ((x1-x2)(y-y2) - (y1-y2)(x-x2)) / d0  →  a·x + b·y + c with the
-    # reference's own denominator (sign preserved → λ≥0 test is identical).
-    def coeffs(xa, ya, xb, yb, xc, yc):
-        # λ formula around vertex a, with edge b→c: matches py filler:176-178
-        d = (xb - xc) * (ya - yc) - (yb - yc) * (xa - xc)
-        a = -(yb - yc) / d
-        b = (xb - xc) / d
-        c = ((yb - yc) * xc - (xb - xc) * yc) / d
-        return a, b, c
-
-    a0, b0, c0 = coeffs(x0, y0, x1, y1, x2, y2)
-    a1, b1, c1 = coeffs(x1, y1, x2, y2, x0, y0)
-    a2, b2, c2 = coeffs(x2, y2, x0, y0, x1, y1)
-
-    az = a0 * z0 + a1 * z1 + a2 * z2
-    bz = b0 * z0 + b1 * z1 + b2 * z2
-    cz = c0 * z0 + c1 * z1 + c2 * z2
-
-    xl, xr, yl, yr = bbox_ceil(tris_screen[..., :2], w, h)
-
-    # SAFETY INVARIANT: a culled/empty triangle's packed row must have an
-    # empty bbox. Unplaced (stale) bin slots clamp to arbitrary row indices;
-    # that is only harmless if every row that can cover a pixel is provably
-    # present in that pixel's tile bin — true for placed rows, and made true
-    # for culled rows by zeroing their bbox here (they fail every bbox test).
+    xl, xr, yl, yr = bbox_ceil(tris_screen[..., :2], config.width,
+                               config.height)
     nonempty = active & (xr > xl) & (yr > yl)
-    xl = jnp.where(nonempty, xl, 0)
-    xr = jnp.where(nonempty, xr, 0)
-    yl = jnp.where(nonempty, yl, 0)
-    yr = jnp.where(nonempty, yr, 0)
-
-    cols = [a0, b0, c0, a1, b1, c1, a2, b2, c2, az, bz, cz,
-            xl.astype(jnp.float32), xr.astype(jnp.float32),
-            yl.astype(jnp.float32), yr.astype(jnp.float32)]
-
-    if colors is not None:
-        # normals=None → fast-shade mode: only the 3 (pre-shaded) color
-        # channels get attribute planes; the kernel runs with n_attrs=3
-        if normals is None:
-            vals = colors                                  # (T, 3, 3)
-        else:
-            vals = jnp.concatenate([colors, normals], axis=2)  # (T, 3, 6)
-        n_ch = vals.shape[2]
-        v0, v1, v2 = vals[:, 0], vals[:, 1], vals[:, 2]    # (T, n_ch)
-        acoef = a0[:, None] * v0 + a1[:, None] * v1 + a2[:, None] * v2
-        bcoef = b0[:, None] * v0 + b1[:, None] * v1 + b2[:, None] * v2
-        ccoef = c0[:, None] * v0 + c1[:, None] * v1 + c2[:, None] * v2
-        packed = jnp.stack([acoef, bcoef, ccoef], axis=2)  # (T, n_ch, 3)
-        cols += [packed[:, ch, k] for ch in range(n_ch) for k in range(3)]
-
-    # No zero-padding columns: every consumer either slices the live rows
-    # (grouped binner: ``rows[:, :_rows_used]``) or pads to its own DMA
-    # width itself (un-grouped fallback pads to 128 in ``_raster_tiles``) —
-    # emitting only the live columns trims the transpose below by ~40%
-    # (lean frames carry 25 live columns, exact frames 34).
-    # Pack as (n_cols, T) + ONE transpose: stacking along a NEW MAJOR
-    # axis keeps every (T,) column in its native lane layout (cheap
-    # copies), and XLA transposes the block in one pass. The axis=1 stack
-    # (64 column insertions, each a lane→sublane relayout) measured
-    # ~0.24 ms/frame slower on T-Rex (stage_chain3 plane stage: 0.265 →
-    # 0.023 net).
-    rows = jnp.stack(cols, axis=0).T
-
     tx0 = jnp.where(nonempty, xl // tile_w, 0)
     tx1 = jnp.where(nonempty, (xr - 1) // tile_w, -1)
     ty0 = jnp.where(nonempty, yl // tile_h, 0)
     ty1 = jnp.where(nonempty, (yr - 1) // tile_h, -1)
     cx = jnp.maximum(tx1 - tx0 + 1, 0)
     cy = jnp.maximum(ty1 - ty0 + 1, 0)
-    counts = cx * cy
-    return rows, tx0, cx, ty0, cy, counts
+    return tx0, cx, ty0, cy, cx * cy
 
 
 def capacity_bucket(total: int, chunk: int, bucket: int = 4096) -> int:
@@ -148,43 +52,13 @@ def capacity_bucket(total: int, chunk: int, bucket: int = 4096) -> int:
     return -(-(total + chunk) // bucket) * bucket
 
 
-def gather_binned(rows: jnp.ndarray, order: jnp.ndarray,
-                  chunk: int) -> jnp.ndarray:
-    """Gather plane rows into placed bin order, plus a chunk-tail guard.
+def bin_pairs(tx0, cx, ty0, cy, counts, p_cap: int, ntx: int, nty: int):
+    """Expand triangle tile spans into (tile, triangle) pairs, sorted by tile.
 
-    One gather, no zero-row concat and no materialized chunk-tail pad:
-    stale/tail slots clamp to some real row, which provably cannot affect
-    any tile's output (duplicate-or-fail-bbox — any real row either fails
-    the bbox test for the reading tile or duplicates an entry already in
-    that tile's bin at an earlier rank; see binsort_pallas).
-    """
-    order = jnp.pad(order, (0, chunk))     # chunk-tail guard slots
-    return rows[jnp.minimum(order, rows.shape[0] - 1)]
-
-
-def bin_pairs_fast(rows: jnp.ndarray, tx0, cx, ty0, cy,
-                   p_cap: int, ntx: int, nty: int, chunk: int):
-    """Counting-sort binning via the Pallas placement kernel.
-
-    Same contract as ``bin_pairs`` but O(pairs) instead of a bitonic sort.
-    Not usable under Pallas interpret mode (scalar placement loops are
-    prohibitively slow interpreted) — tests use ``bin_pairs``.
-    """
-    from .binsort_pallas import bin_sort
-
-    order, tile_starts, tile_counts, _total, n_active = bin_sort(
-        tx0, cx, ty0, cy, ntx=ntx, nty=nty, p_cap=p_cap)
-    binned = gather_binned(rows, order, chunk)
-    return binned, tile_starts, tile_counts, n_active
-
-
-def bin_pairs(rows: jnp.ndarray, tx0, cx, ty0, cy, counts,
-              p_cap: int, ntx: int, nty: int, chunk: int):
-    """Expand, sort, and gather triangle plane rows into per-tile bins.
-
-    Returns (binned (p_cap + chunk, 32) f32, tile_starts (n_tiles,) i32,
-    tile_counts (n_tiles,) i32). The trailing ``chunk`` rows are padding so
-    the kernel's fixed-size chunk DMA never reads out of bounds.
+    Returns ``(slot_tri (p_cap,), tile_starts (n_tiles,), tile_counts
+    (n_tiles,))``, all int32: tile ``i``'s bin is
+    ``slot_tri[tile_starts[i] : tile_starts[i] + tile_counts[i]]``, in
+    ascending triangle order. Slots past the pair total belong to no tile.
     """
     n_tiles = ntx * nty
     csum = jnp.cumsum(counts)
@@ -192,7 +66,10 @@ def bin_pairs(rows: jnp.ndarray, tx0, cx, ty0, cy, counts,
     starts_excl = jnp.concatenate([jnp.zeros(1, counts.dtype), csum[:-1]])
 
     p = jnp.arange(p_cap, dtype=jnp.int32)
-    tri = jnp.searchsorted(starts_excl, p, side="right").astype(jnp.int32) - 1
+    # unrolled binary searches: a rolled search is a device while loop,
+    # whose per-iteration predicate round trip dominates binning on a GPU
+    tri = jnp.searchsorted(starts_excl, p, side="right",
+                           method="scan_unrolled").astype(jnp.int32) - 1
     tri = jnp.clip(tri, 0, counts.shape[0] - 1)
     valid = p < total
     within = p - starts_excl[tri]
@@ -214,18 +91,10 @@ def bin_pairs(rows: jnp.ndarray, tx0, cx, ty0, cy, counts,
     else:  # keys would overflow int32 — fall back to a stable argsort
         sorted_p = jnp.argsort(tile, stable=True).astype(jnp.int32)
         sorted_tile = tile[sorted_p]
-    sorted_tri = tri[sorted_p]
-    sorted_valid = sorted_p < total
 
     tile_ids = jnp.arange(n_tiles, dtype=jnp.int32)
-    tile_starts = jnp.searchsorted(sorted_tile, tile_ids, side="left") \
-        .astype(jnp.int32)
-    tile_ends = jnp.searchsorted(sorted_tile, tile_ids, side="right") \
-        .astype(jnp.int32)
-    tile_counts = tile_ends - tile_starts
-
-    # Zero the capacity-padding rows (empty bbox → can never cover a pixel):
-    # the kernel reads chunk tails without a count mask.
-    binned = rows[sorted_tri] * sorted_valid[:, None].astype(jnp.float32)
-    binned = jnp.pad(binned, ((0, chunk), (0, 0)))  # chunk-tail guard
-    return binned, tile_starts, tile_counts
+    tile_starts = jnp.searchsorted(sorted_tile, tile_ids, side="left",
+                                   method="scan_unrolled").astype(jnp.int32)
+    tile_ends = jnp.searchsorted(sorted_tile, tile_ids, side="right",
+                                 method="scan_unrolled").astype(jnp.int32)
+    return tri[sorted_p], tile_starts, tile_ends - tile_starts

@@ -4,8 +4,8 @@ The reference projects one 3x4 matrix per triangle inside the per-triangle
 loop (``crender/py/pixel_buffer_filler/advanced_pixel_buffer_filler.py:84-105``)
 or an OpenMP prange over triangles
 (``crender/cy/pixel_buffer_filler/advanced_pixel_buffer_filler.pyx:106-130``).
-Here the *whole model* is projected with one ``[T·3, 4] @ [4, 4]`` matmul — the
-natural MXU formulation — and both culling predicates become vectorized masks:
+Here the *whole model* is projected with one ``[T·3, 4] @ [4, 4]`` matmul
+(float32 at ``precision="highest"``) and both culling predicates become vectorized masks:
 
 * degenerate cull: 2D cross of the unprojected triangle's edges == 0
   (reference py filler:59-61);
@@ -45,7 +45,7 @@ def project_to_screen(tri_vertices: jnp.ndarray,
     """Project (T, 3, 3) model-space triangles to (T, 3, 3) screen coords.
 
     Output per vertex: (x_screen, y_screen, depth) with depth in [0, 1] for
-    points inside the clip range. One batched matmul (MXU) replaces the
+    points inside the clip range. One batched matmul replaces the
     reference's per-triangle ``np.dot`` / OpenMP prange.
     """
     t = tri_vertices.shape[0]

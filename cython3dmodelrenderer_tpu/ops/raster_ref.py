@@ -1,7 +1,7 @@
 """Pure-jnp rasterizer — deterministic z-resolve, no locks.
 
-This is the XLA fallback backend and the semantic oracle for the Pallas
-kernel. It reproduces the reference rasterization rules
+This is the plain XLA backend and the semantic oracle for the tile kernel
+(``ops/raster_pallas.py``). It reproduces the reference rasterization rules
 (``crender/py/pixel_buffer_filler/advanced_pixel_buffer_filler.py:108-240``):
 
 * candidate pixels = the ceil-based bounding box, clipped to the image
@@ -19,9 +19,10 @@ kernel. It reproduces the reference rasterization rules
 
 Two-phase design keeps memory bounded: phase 1 scans triangle chunks,
 expanding each triangle over a static BxB bounding-box window and scatter-
-minimizing ``(z, priority)`` per pixel; phase 2 gathers the single winning
-triangle per pixel and recomputes its barycentric interpolation (bit-identical
-to the fragment's, same formula/inputs) to emit color/normal/depth G-buffers.
+minimizing ``(z, priority)`` per pixel; phase 2 (``resolve``, shared with the
+tile kernel) gathers the single winning triangle per pixel and recomputes its
+barycentric interpolation (same formula and inputs as the fragment's) to emit
+color/normal/depth G-buffers.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ import jax.numpy as jnp
 
 from ..config import RenderConfig
 
-_INT_MAX = jnp.iinfo(jnp.int32).max
+INT_MAX = jnp.iinfo(jnp.int32).max
 
 
 def bbox_ceil(tri_xy: jnp.ndarray, width: int, height: int):
@@ -57,9 +58,17 @@ def barycentric(tri_xy: jnp.ndarray, px: jnp.ndarray, py: jnp.ndarray):
     tri_xy: (..., 3, 2); px/py broadcastable against the leading dims.
     Returns (l0, l1, l2), each shaped like px.
     """
-    x0, y0 = tri_xy[..., 0, 0], tri_xy[..., 0, 1]
-    x1, y1 = tri_xy[..., 1, 0], tri_xy[..., 1, 1]
-    x2, y2 = tri_xy[..., 2, 0], tri_xy[..., 2, 1]
+    return barycentric_xy(tri_xy[..., 0, 0], tri_xy[..., 0, 1],
+                          tri_xy[..., 1, 0], tri_xy[..., 1, 1],
+                          tri_xy[..., 2, 0], tri_xy[..., 2, 1], px, py)
+
+
+def barycentric_xy(x0, y0, x1, y1, x2, y2, px, py):
+    """``barycentric`` on separate vertex coordinates (broadcastable).
+
+    The tile kernel evaluates the same expressions, so both backends test
+    coverage with one formula.
+    """
     l0 = ((x1 - x2) * (py - y2) - (y1 - y2) * (px - x2)) / \
          ((x1 - x2) * (y0 - y2) - (y1 - y2) * (x0 - x2))
     l1 = ((x2 - x0) * (py - y0) - (y2 - y0) * (px - x0)) / \
@@ -147,8 +156,8 @@ def rasterize(tris_screen: jnp.ndarray,
         is_cand = (idx < hw) & (zflat == zc_at)
         pflat = jnp.where(is_cand,
                           jnp.broadcast_to(cprio[:, None, None], good.shape).reshape(-1),
-                          _INT_MAX)
-        pc = jnp.full(hw + 1, _INT_MAX, jnp.int32).at[idx].min(pflat)[:hw]
+                          INT_MAX)
+        pc = jnp.full(hw + 1, INT_MAX, jnp.int32).at[idx].min(pflat)[:hw]
 
         # Merge into the carry: strict < beats, ties keep earlier chunk
         # (priorities increase monotonically across chunks).
@@ -164,21 +173,27 @@ def rasterize(tris_screen: jnp.ndarray,
     vary_f = jnp.float32(0) * jnp.sum(active.astype(jnp.float32))
     vary_i = jnp.int32(0) * jnp.sum(active.astype(jnp.int32))
     zbuf0 = jnp.full(hw, jnp.inf, jnp.float32) + vary_f
-    pbuf0 = jnp.full(hw, _INT_MAX, jnp.int32) + vary_i
-    (zbuf, pbuf), _ = jax.lax.scan(scan_body, (zbuf0, pbuf0),
-                                   jnp.arange(t_pad // chunk))
+    pbuf0 = jnp.full(hw, INT_MAX, jnp.int32) + vary_i
+    (_zbuf, pbuf), _ = jax.lax.scan(scan_body, (zbuf0, pbuf0),
+                                    jnp.arange(t_pad // chunk))
 
-    return _resolve(tris_screen, colors, normals, zbuf, pbuf, config)
+    return resolve(tris_screen, colors, normals, pbuf, config)
 
 
-def _resolve(tris_screen, colors, normals, zbuf, pbuf, config: RenderConfig):
-    """Phase 2: gather each pixel's winning triangle, interpolate attributes."""
+def resolve(tris_screen, colors, normals, pbuf, config: RenderConfig):
+    """Phase 2: gather each pixel's winning triangle, interpolate attributes.
+
+    ``pbuf`` is the (H*W,) winning triangle index per pixel (``INT_MAX`` =
+    no triangle). Depth is re-evaluated from the winner's barycentrics with
+    the phase-1 fragment formula, so it is the winning fragment's depth.
+    Returns (color (H, W, 3), z (H, W, 1), normal (H, W, 3)) float32.
+    """
     h, w = config.height, config.width
     if colors.shape[0] == 0:   # empty scene → background everywhere
         return (jnp.zeros((h, w, 3), jnp.float32),
                 jnp.full((h, w, 1), config.z_init, jnp.float32),
                 jnp.zeros((h, w, 3), jnp.float32))
-    has = pbuf != _INT_MAX
+    has = pbuf != INT_MAX
     win = jnp.where(has, pbuf, 0)
 
     twin = tris_screen[win]                       # (HW, 3, 3)
@@ -186,6 +201,7 @@ def _resolve(tris_screen, colors, normals, zbuf, pbuf, config: RenderConfig):
     py = jax.lax.broadcasted_iota(jnp.int32, (h, w), 0).reshape(-1).astype(jnp.float32)
     l0, l1, l2 = barycentric(twin[..., :2], px, py)
     bar = jnp.stack([l0, l1, l2], axis=-1)        # (HW, 3)
+    z = l0 * twin[:, 0, 2] + l1 * twin[:, 1, 2] + l2 * twin[:, 2, 2]
 
     # colors/normals are indexed by the *unpadded* triangle table; winners
     # always point at real triangles (padded ones are inactive).
@@ -197,7 +213,7 @@ def _resolve(tris_screen, colors, normals, zbuf, pbuf, config: RenderConfig):
 
     color = jnp.where(has[:, None], interp_c, 0.0).reshape(h, w, 3)
     normal = jnp.where(has[:, None], interp_n, 0.0).reshape(h, w, 3)
-    zout = jnp.where(has, zbuf, config.z_init).reshape(h, w, 1)
+    zout = jnp.where(has, z, config.z_init).reshape(h, w, 1)
     return color, zout, normal
 
 
@@ -210,9 +226,15 @@ def required_bbox_size(tris_screen: jnp.ndarray, active: jnp.ndarray,
     """
     if tris_screen.shape[0] == 0:
         return bucket
+    need = max(int(max_bbox_side(tris_screen, active, config)), 1)
+    return -(-need // bucket) * bucket
+
+
+def max_bbox_side(tris_screen: jnp.ndarray, active: jnp.ndarray,
+                  config: RenderConfig):
+    """Device scalar: the largest clipped bbox side over active triangles —
+    the ``bbox_size`` a frame needs to drop no fragment."""
     xl, xr, yl, yr = bbox_ceil(tris_screen[..., :2], config.width, config.height)
     wmax = jnp.max(jnp.where(active, xr - xl, 0))
     hmax = jnp.max(jnp.where(active, yr - yl, 0))
-    need = int(jnp.maximum(wmax, hmax))
-    need = max(need, 1)
-    return -(-need // bucket) * bucket
+    return jnp.maximum(wmax, hmax)

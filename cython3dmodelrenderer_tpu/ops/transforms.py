@@ -17,7 +17,7 @@ The reference recomputes normals with an O(T·V) pure-Python loop; here the
 mesh topology is compiled once into a fixed-shape vertex→face incidence table
 (host side) and the per-rotation recompute is a fully vectorized jnp program
 (gather + pairwise dots + a short scan over the max vertex degree), so it runs
-on the TPU's VPU instead of the Python interpreter.
+on the device instead of the Python interpreter.
 """
 from __future__ import annotations
 
@@ -73,7 +73,7 @@ def rotation_matrix(angles, degrees: bool = True) -> jnp.ndarray:
         .at[2, 0].set(-sy).at[2, 2].set(cy)
     rz = jnp.eye(3, dtype=jnp.float32).at[:2, :2].set(
         jnp.stack([jnp.stack([cz, sz]), jnp.stack([-sz, cz])]))
-    # full-f32 products — TPU matmul defaults to bf16 inputs otherwise
+    # full-f32 products: default matmul precision may round the inputs
     return jnp.matmul(jnp.matmul(rx, ry, precision="highest"), rz,
                       precision="highest")
 

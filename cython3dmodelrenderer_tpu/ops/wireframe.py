@@ -7,7 +7,7 @@ Sequential pixel stepping is hostile to SIMD, but Bresenham has a closed form:
 after ``t`` steps the major axis has advanced ``t`` and the minor axis
 ``m(t) = ceil((2·es·t − el) / (2·el))`` (with ``el = max(|dx|, |dy|)``,
 ``es = min(|dx|, |dy|)`` and the reference's ``error = el/2`` initialisation),
-so every pixel of every line is computed independently on the VPU. Overwrite
+so every pixel of every line is computed independently on the device. Overwrite
 order (later lines win crossings) is reproduced with a per-pixel priority
 scatter-max instead of sequential writes.
 

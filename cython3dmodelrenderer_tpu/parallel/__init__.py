@@ -1,14 +1,14 @@
-"""Multi-view / multi-chip rendering (see ``multiview`` and ``mesh``)."""
+"""Multi-view / multi-device rendering (see ``multiview`` and ``mesh``)."""
 from .mesh import make_mesh
-from .multiview import (render_sequence_pallas, render_triangle_sharded,
-                        render_turntable, render_turntable_pallas,
-                        render_turntable_sharded, render_view,
-                        sequence_capacity, triangle_shard_capacity,
-                        turntable_angles, turntable_capacity)
+from .multiview import (render_sequence, render_triangle_sharded,
+                        render_turntable, render_turntable_sharded,
+                        render_view, sequence_capacity,
+                        triangle_shard_capacity, turntable_angles,
+                        turntable_capacity)
 
 __all__ = [
-    "make_mesh", "render_sequence_pallas", "render_triangle_sharded",
-    "render_turntable", "render_turntable_pallas",
-    "render_turntable_sharded", "render_view", "sequence_capacity",
-    "triangle_shard_capacity", "turntable_angles", "turntable_capacity",
+    "make_mesh", "render_sequence", "render_triangle_sharded",
+    "render_turntable", "render_turntable_sharded", "render_view",
+    "sequence_capacity", "triangle_shard_capacity", "turntable_angles",
+    "turntable_capacity",
 ]

@@ -1,21 +1,23 @@
-"""Multi-view and multi-chip rendering.
+"""Multi-view and multi-device rendering.
 
 The reference's only parallelism is OpenMP threads over triangles with a
-per-pixel lock grid (SURVEY §2). The TPU-native scaling axes are:
+per-pixel lock grid (SURVEY §2). The scaling axes here are:
 
-* **vmapped multi-camera** — one chip renders a batch of views (the
-  64-camera turntable benchmark) as a single vectorized program;
+* **pose sweeps** — one device renders a sequence of views (the 64-camera
+  turntable benchmark) as a single jitted scan;
 * **view-sharded mesh** — ``shard_map`` over a device mesh axis ``views``:
-  each device rasterizes its own subset of cameras; no communication needed
+  each device renders its own subset of cameras; no communication needed
   until the final gather (data parallelism over views);
 * **triangle-sharded mesh** — mesh axis ``tris``: each device rasterizes a
   shard of the triangle list into a full-size partial G-buffer, then the
-  buffers merge with a z-argmin all-reduce (``psum``-style min over packed
-  (z, priority) keys) — the collective equivalent of the reference's locked
-  z-buffer writes, ridden over ICI instead of a lock grid.
+  buffers merge with an exact z-argmin (``pmin`` over depth, then over the
+  shard index) — the collective equivalent of the reference's locked
+  z-buffer writes.
 
-All functions are pure and jit/shard_map-compatible; mesh construction
-helpers live in ``parallel.mesh``.
+Every path renders through the single frame body ``ops.frame.frame_body``,
+the same one ``AdvancedPixelBufferFiller`` dispatches, with its backend
+("pallas" tile kernel or "jnp" oracle) and static capacity ``cap`` (see
+``ops.frame``). ``backend="auto"`` resolves per platform like the filler.
 """
 from __future__ import annotations
 
@@ -27,14 +29,14 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..config import RenderConfig
-from ..ops import raster_pallas, raster_ref
+from ..ops import frame, raster_ref
 from ..ops.illumination import lambert_shade
 from ..ops.projection import project_to_screen, visibility_masks
 from ..ops.transforms import rotation_matrix
 
 
 # --------------------------------------------------------------------------
-# Single-view functional core (shared by all parallel modes)
+# Single-view functional core
 # --------------------------------------------------------------------------
 
 
@@ -42,16 +44,16 @@ def render_view(tri_verts: jnp.ndarray, tri_norms: jnp.ndarray,
                 tri_colors: jnp.ndarray, config: RenderConfig,
                 bbox_size: int = 64, chunk: int = 512,
                 light_direction=(0.0, 0.0, 1.0)):
-    """Project → rasterize → shade one view. Returns (color, z, normal)."""
+    """Project → rasterize (XLA oracle) → shade one view.
+
+    Returns (shaded color, z, normal)."""
     degenerate, backfacing = visibility_masks(tri_verts, tri_norms)
     active = jnp.logical_and(~degenerate, ~backfacing)
     ts = project_to_screen(tri_verts, config)
     color, z, normal = raster_ref.rasterize(ts, tri_colors, tri_norms, active,
                                             config, bbox_size=bbox_size,
                                             chunk=chunk)
-    light = -jnp.asarray(light_direction, jnp.float32)
-    light = light / jnp.linalg.norm(light)
-    return lambert_shade(color, light=light, n_buffer=normal), z, normal
+    return lambert_shade(color, normal, _norm_light(light_direction)), z, normal
 
 
 def turntable_angles(n_views: int) -> jnp.ndarray:
@@ -77,27 +79,6 @@ def _pose_triangles(tri_verts: jnp.ndarray, tri_norms: jnp.ndarray,
     return v + jnp.asarray(post_shift, jnp.float32), n
 
 
-@partial(jax.jit, static_argnames=("config", "bbox_size", "chunk"))
-def render_turntable(tri_verts: jnp.ndarray, tri_norms: jnp.ndarray,
-                     tri_colors: jnp.ndarray, angles: jnp.ndarray,
-                     config: RenderConfig, post_shift=(0.0, 0.0, 1.0),
-                     bbox_size: int = 64, chunk: int = 512) -> jnp.ndarray:
-    """vmapped multi-view render on one chip (jnp backend).
-
-    ``tri_verts`` should be centered (fit_model without the final z shift);
-    each view rotates the model by its angle triple then shifts by
-    ``post_shift``. Returns (N, H, W, 3) shaded color images.
-    """
-
-    def one(angle3):
-        v, n = _pose_triangles(tri_verts, tri_norms, angle3, post_shift)
-        color, _, _ = render_view(v, n, tri_colors, config,
-                                  bbox_size=bbox_size, chunk=chunk)
-        return color
-
-    return jax.vmap(one)(angles)
-
-
 def _norm_light(light_direction):
     """Pre-negated unit light, or None → no illumination (colors pass
     through unshaded — the sweeps' ``NoIllumination`` analogue)."""
@@ -107,462 +88,122 @@ def _norm_light(light_direction):
     return light / jnp.linalg.norm(light)
 
 
-def _sweep(body, xs, unroll: int = 4):
-    """``lax.map`` replacement: scan with partial unrolling.
-
-    A plain ``lax.map`` costs a measured ~0.3 ms/view of while-loop
-    bookkeeping on the view sweep (buffer shuffling between iterations that
-    XLA cannot elide); ``scan(unroll=4)`` recovers nearly all of it while
-    keeping compile time bounded (4 body copies instead of N)."""
-
-    def step(carry, x):
-        return carry, body(x)
-
-    _, out = jax.lax.scan(step, 0, xs, unroll=unroll)
-    return out
+def _broadcast_shifts(shifts, n: int, post_shift=(0.0, 0.0, 1.0)):
+    if shifts is None:
+        return jnp.broadcast_to(jnp.asarray(post_shift, jnp.float32), (n, 3))
+    return jnp.asarray(shifts, jnp.float32)
 
 
-def _render_view_pallas(tri_verts, tri_norms, tri_colors,
-                        config: RenderConfig, p_cap: int, chunk: int,
-                        group: int, interpret: bool, light,
-                        fast: bool = False, packed_out: bool = False,
-                        post: str = "none", g_cap: int = 0):
-    """One posed view through the production Pallas pipeline.
-
-    Shared by the single-chip turntable, view-sharded, and triangle-sharded
-    paths so the pipeline glue (tile constants, plane stage, stage_b
-    arguments, shading convention) has exactly one definition. Returns
-    (shaded color, z, normal, cap_used) — ``cap_used`` is the bin-slot
-    demand the static ``p_cap`` must cover (geometry was silently truncated
-    iff ``cap_used > p_cap``).
-
-    ``packed_out=True`` instead returns (packed, n_attrs, cap_used,
-    post_img) — the raw packed G-buffer for callers that only keep the
-    final image (the sweeps). With ``post`` set, the grouped kernel
-    shades/quantizes in-kernel and ``post_img`` is the finished uint8
-    frame (None on the un-grouped degrade path — derive from ``packed``
-    via ``raster_pallas.unpack_gbuffers`` then).
-    """
-    from ..ops import binning, raster_pallas
-
-    th, tw = raster_pallas.TILE_H, raster_pallas.TILE_W
-    degenerate, backfacing = visibility_masks(tri_verts, tri_norms)
-    act = jnp.logical_and(~degenerate, ~backfacing)
-    ts = project_to_screen(tri_verts, config)
-    if fast and light is None:
-        raise ValueError("fast_shade needs a light direction "
-                         "(it bakes Lambert per vertex)")
-    if fast:
-        # opt-in Gouraud fast mode (render_frame's "fast_lambert_u8"
-        # analogue): Lambert baked into the per-vertex colors, 3 attr
-        # channels, no deferred shade; normals G-buffer reads zeros
-        attr_colors, attr_normals, n_attrs = (
-            lambert_shade(tri_colors, tri_norms, light), None, 3)
-    elif post == "u8" and packed_out:
-        # LEAN unlit u8 sweep frames: only B, G, R leave the kernel — the
-        # normal channels are dead weight (see render_frame's lean mode)
-        attr_colors, attr_normals, n_attrs = tri_colors, None, 3
-    else:
-        attr_colors, attr_normals, n_attrs = (tri_colors, tri_norms,
-                                              binning.N_ATTRS)
-    rows, tx0, cx, ty0, cy, counts, _total = raster_pallas._plane_stage(
-        ts, attr_colors, attr_normals, act, config, th, tw)
-    out, n_act, used, post_img = raster_pallas._stage_b(
-        rows, tx0, cx, ty0, cy, counts, config, p_cap, 0,
-        th, tw, chunk, interpret, group, n_attrs=n_attrs,
-        packed_out=packed_out, post=post, light=light,
-        emit_gbuf=(post == "none"), g_cap=g_cap)
-    if g_cap:
-        # live-group compaction overflow renders the smallest tiles as
-        # background — fold it into the capacity-demand channel so the
-        # callers' ``used <= p_cap`` checks catch the truncation
-        used = jnp.where(n_act > g_cap * group,
-                         jnp.maximum(used, p_cap + 1), used)
-    if packed_out:
-        return out, n_attrs, used, post_img
-    color, z, normal = out
-    if fast or light is None:   # pre-shaded (Gouraud) or NoIllumination
-        return color, z, normal, used
-    return lambert_shade(color, light=light, n_buffer=normal), z, normal, used
+# --------------------------------------------------------------------------
+# Pose sweeps (one device)
+# --------------------------------------------------------------------------
 
 
-def _batched_view_spans(tri_verts, tri_norms, tri_colors, angles_b, shifts_b,
-                        config: RenderConfig, group: int,
-                        light=None, fast: bool = False, lean: bool = False):
-    """Pose + project + plane-stage a small batch of views and concatenate
-    them in the stacked-tile-row layout ``raster_pallas._stage_b`` consumes
-    with ``n_views > 1`` (view v's tile rows offset by ``v * stride``).
-    Shared by the batched renderer and its capacity sizing — the two MUST
-    agree on the layout or sizing would under-count.
-    """
-    from ..ops import binning
+def _sweep(tri_verts, tri_norms, tri_colors, angles, shifts,
+           config: RenderConfig, backend: str, cap: int, light, post: str):
+    """Scan the frame body over poses: (images (N, H, W, 3), demand (N,))."""
 
-    th, tw = raster_pallas.TILE_H, raster_pallas.TILE_W
-    nty = -(-config.height // th)
-    stride = raster_pallas.view_row_stride(nty, group)
-    parts = []
-    for v in range(angles_b.shape[0]):      # static, small (view_batch)
-        pv, pn = _pose_triangles(tri_verts, tri_norms, angles_b[v],
-                                 shifts_b[v])
-        degenerate, backfacing = visibility_masks(pv, pn)
-        act = jnp.logical_and(~degenerate, ~backfacing)
-        ts = project_to_screen(pv, config)
-        if fast:   # Gouraud: Lambert baked per-vertex with POSED normals
-            if light is None:
-                raise ValueError("fast_shade needs a light direction "
-                                 "(it bakes Lambert per vertex)")
-            colors_v, normals_v = lambert_shade(tri_colors, pn, light), None
-        elif lean:   # unlit u8: normal channels never leave the kernel
-            colors_v, normals_v = tri_colors, None
-        else:
-            colors_v, normals_v = tri_colors, pn
-        rows, tx0, cx, ty0, cy, counts = binning.plane_data(
-            ts, act, config, th, tw, colors=colors_v, normals=normals_v)
-        # The y-BBOX moves to STACKED image coordinates (exact: integer
-        # adds in f32) while the plane rows stay view-relative — the
-        # kernels test the y-bbox against the global pixel row, which is
-        # what rejects another view's rows read by a chunk tail (the
-        # "harmless duplicate" invariant only holds within one view).
-        rows = rows.at[:, binning.IDX_YL:binning.IDX_YR + 1].add(
-            jnp.float32(v * stride * th))
-        parts.append((rows, tx0, cx, ty0 + v * stride, cy, counts))
-    return tuple(jnp.concatenate(xs) for xs in zip(*parts))
-
-
-def _render_viewbatch_pallas(tri_verts, tri_norms, tri_colors, angles_b,
-                             shifts_b, config: RenderConfig, p_cap: int,
-                             chunk: int, group: int, interpret: bool, light,
-                             fast: bool = False, post: str = "f32",
-                             g_cap: int = 0):
-    """A batch of posed views through ONE grouped-kernel launch.
-
-    The views stack vertically in tile-id space (VERDICT r2 task: "batch
-    views' tiles into one Pallas grid"): one sort/binning pass and one
-    raster grid cover all of them, count-sorted grouping balances stripes
-    ACROSS views, and the per-view fixed stage costs amortize. Each view's
-    pixels stay BIT-IDENTICAL to its single-view render (plane evaluation
-    is view-relative — ``raster_pallas._stage_b`` docs). Returns
-    (shaded (V, H, W, 3) — uint8 when ``post == "u8"``, else f32, cap_used).
-    """
-    from ..ops import binning
-
-    # LEAN unlit u8 batches carry only the 3 color channels, like the
-    # single-view path (render_frame's lean mode) — the kernel then runs
-    # its packed-BGR i32 accumulation
-    lean = post == "u8" and light is None and not fast
-    rows, tx0, cx, ty0, cy, counts = _batched_view_spans(
-        tri_verts, tri_norms, tri_colors, angles_b, shifts_b, config, group,
-        light=light, fast=fast, lean=lean)
-    th, tw = raster_pallas.TILE_H, raster_pallas.TILE_W
-    n_attrs = 3 if (fast or lean) else binning.N_ATTRS
-    n_views = int(angles_b.shape[0])
-    kpost = "none"
-    if post == "u8":   # shade/quantize in-kernel; only bytes leave
-        kpost = "u8" if (fast or light is None) else "lambert_u8"
-    packed, n_act, used, post_img = raster_pallas._stage_b(
-        rows, tx0, cx, ty0, cy, counts, config, p_cap, 0,
-        th, tw, chunk, interpret, group,
-        n_attrs=n_attrs, n_views=n_views, packed_out=True,
-        post=kpost, light=light, emit_gbuf=(kpost == "none"), g_cap=g_cap)
-    if g_cap:
-        used = jnp.where(n_act > g_cap * group,
-                         jnp.maximum(used, p_cap + 1), used)
-    if post_img is not None:
-        return post_img, used
-    nty = -(-config.height // th)
-    color, _z, normal = raster_pallas.unpack_gbuffers(
-        packed, config, th, tw, n_attrs=n_attrs, n_views=n_views,
-        rows_per_view=raster_pallas.view_row_stride(nty, group), group=group)
-    if fast or light is None:   # pre-shaded (Gouraud) or NoIllumination
-        if post == "u8":
-            color = color.astype(jnp.uint8)
-        return color, used
-    color = lambert_shade(color, light=light, n_buffer=normal)
-    if post == "u8":
-        color = color.astype(jnp.uint8)
-    return color, used
-
-
-def _sweep_batched(tri_verts, tri_norms, tri_colors, angles, shifts,
-                   config: RenderConfig, p_cap: int, chunk: int, group: int,
-                   interpret: bool, light, post: str, view_batch: int,
-                   fast: bool = False, g_cap: int = 0):
-    """Scan over view batches; each step renders ``view_batch`` views
-    through one stacked kernel launch (see ``_render_viewbatch_pallas``)."""
-    ab = angles.reshape(-1, view_batch, 3)
-    sb = shifts.reshape(-1, view_batch, 3)
-
-    def oneb(xs):
-        a_b, s_b = xs
-        color, used = _render_viewbatch_pallas(
-            tri_verts, tri_norms, tri_colors, a_b, s_b, config, p_cap,
-            chunk, group, interpret, light, fast=fast, post=post,
-            g_cap=g_cap)
-        return color, used
-
-    # scan bodies are view_batch x bigger — scale the unroll down
-    images, used = _sweep(oneb, (ab, sb), unroll=max(1, 4 // view_batch))
-    return images.reshape((-1,) + images.shape[2:]), used
-
-
-def _run_sweep(tri_verts, tri_norms, tri_colors, angles, shifts,
-               config: RenderConfig, p_cap: int, chunk: int, group: int,
-               interpret: bool, light, post: str, view_batch: int,
-               fast_shade: bool, g_cap: int = 0):
-    """The one sweep dispatcher behind the turntable AND sequence entry
-    points: batched (stacked views per launch) or per-view scan."""
-    if view_batch > 1:
-        if angles.shape[0] % view_batch:
-            raise ValueError(
-                f"view_batch={view_batch} must divide {angles.shape[0]} poses")
-        return _sweep_batched(
-            tri_verts, tri_norms, tri_colors, angles, shifts, config, p_cap,
-            chunk, group, interpret, light, post, view_batch, fast=fast_shade,
-            g_cap=g_cap)
-
-    def one(pose):
+    def step(carry, pose):
         angle3, shift3 = pose
         v, n = _pose_triangles(tri_verts, tri_norms, angle3, shift3)
-        # u8 sweeps shade/quantize IN-KERNEL (grouped path): the frame
-        # arrives display-ready and only bytes leave the kernel
-        kpost = "none"
         if post == "u8":
-            kpost = "u8" if (fast_shade or light is None) else "lambert_u8"
-        packed, n_attrs, used, post_img = _render_view_pallas(
-            v, n, tri_colors, config, p_cap, chunk, group, interpret,
-            light, fast=fast_shade, packed_out=True, post=kpost,
-            g_cap=g_cap)
-        if post_img is not None:
-            return post_img, used
-        th, tw = raster_pallas.TILE_H, raster_pallas.TILE_W
-        color, _z, normal = raster_pallas.unpack_gbuffers(
-            packed, config, th, tw, n_attrs=n_attrs, group=group)
-        if not fast_shade and light is not None:
-            color = lambert_shade(color, light=light, n_buffer=normal)
-        if post == "u8":
-            color = color.astype(jnp.uint8)
-        return color, used
+            fpost = "u8" if light is None else "lambert_u8"
+        else:
+            fpost = "none"
+        color, _z, normal, image, need = frame.frame_body(
+            v, n, tri_colors, config, backend, cap, post=fpost, light=light)
+        if image is None:
+            image = color if light is None else lambert_shade(color, normal,
+                                                              light)
+        return carry, (image, need)
 
-    return _sweep(one, (angles, shifts))
+    _, (images, need) = jax.lax.scan(step, 0, (angles, shifts))
+    return images, need
 
 
-@partial(jax.jit, static_argnames=("config", "p_cap", "chunk", "interpret",
-                                   "group", "check_capacity", "post",
-                                   "view_batch", "fast_shade", "g_cap"))
-def render_turntable_pallas(tri_verts: jnp.ndarray, tri_norms: jnp.ndarray,
-                            tri_colors: jnp.ndarray, angles: jnp.ndarray,
-                            config: RenderConfig, p_cap: int,
-                            post_shift=(0.0, 0.0, 1.0), chunk: int = 128,
-                            light_direction=(0.0, 0.0, 1.0),
-                            interpret: bool = False,
-                            group: int = raster_pallas.GROUP,
-                            check_capacity: bool = False,
-                            post: str = "f32",
-                            view_batch: int = 1,
-                            fast_shade: bool = False,
-                            g_cap: int = 0) -> jnp.ndarray:
-    """Multi-view render through the Pallas rasterizer (one chip).
+@partial(jax.jit, static_argnames=("config", "cap", "backend", "post",
+                                   "check_capacity"))
+def render_sequence(tri_verts: jnp.ndarray, tri_norms: jnp.ndarray,
+                    tri_colors: jnp.ndarray, angles: jnp.ndarray,
+                    shifts: jnp.ndarray, config: RenderConfig, cap: int,
+                    backend: str = "pallas",
+                    light_direction=(0.0, 0.0, 1.0), post: str = "f32",
+                    check_capacity: bool = False):
+    """Arbitrary pose-sequence animation as ONE dispatch (one device).
 
-    ``g_cap`` (static) enables live-group grid compaction per launch (see
-    ``raster_pallas.render_frame``); size it with ``sequence_demand`` over
-    the same poses/view_batch. A pose whose nonempty-tile count overflows
-    it is reported through the ``check_capacity`` demand channel (the
-    returned peak then exceeds ``p_cap``). 0 = off.
-
-    Views run sequentially via a partially unrolled ``lax.scan`` (each view
-    saturates the chip, so batching across views buys nothing on a single
-    core, and the Pallas grid cannot be vmapped — ``program_id`` semantics;
-    the unroll sheds ``lax.map``'s measured ~0.3 ms/view loop overhead). ``p_cap`` is the static
-    bin capacity; size it with ``turntable_capacity`` (a sampled estimate —
-    pass ``check_capacity=True`` to also get the sweep's true peak bin-slot
-    demand back and assert ``peak <= p_cap`` host-side; an unsampled angle
-    whose demand exceeds the estimate renders with silently truncated
-    geometry otherwise). ``post="u8"`` quantizes each shaded frame to uint8
-    inside the sweep — 4x less output traffic and the frames arrive
-    display-ready (the single-frame path's fused ``post`` analogue).
-
-    ``view_batch=V`` (V dividing the view count) renders V consecutive
-    views per kernel launch as one vertically stacked tile grid — one
-    sort/binning pass, one raster grid, per-view fixed stage costs paid
-    once per batch; pixels stay bit-identical to ``view_batch=1``. Size
-    ``p_cap`` with the SAME ``view_batch`` (``turntable_capacity``) — a
-    batch's slot demand is its views' combined demand.
-
-    ``light_direction=None`` skips illumination entirely (the
-    ``NoIllumination`` analogue — raw interpolated colors).
-
-    ``fast_shade=True`` is the sweep analogue of the single-frame
-    ``post="fast_lambert_u8"`` opt-in: Lambert bakes into the per-vertex
-    colors (classic Gouraud) with each view's POSED normals, the kernel
-    carries 3 attribute channels instead of 6 and the deferred shade
-    drops out. Frames equal ``render_frame``'s fast mode bit-for-bit; the
-    default stays the exact deferred pipeline.
+    Frame i rotates the model by ``angles[i]`` (Euler XYZ degrees, the
+    reference's convention) and translates by ``shifts[i]``; the frames
+    render through the filler's frame body on ``backend`` with the static
+    capacity ``cap`` (size it with ``sequence_capacity``). Returns
+    (N, H, W, 3) shaded color images — float32, or uint8 with
+    ``post="u8"`` (display-ready frames, 4x less output traffic).
+    ``light_direction=None`` skips illumination (the ``NoIllumination``
+    analogue). ``check_capacity=True`` also returns the sweep's peak
+    demand; a frame is complete iff its demand ``<= cap``.
     """
-    shifts = jnp.broadcast_to(jnp.asarray(post_shift, jnp.float32),
-                              (angles.shape[0], 3))
-    images, used = _run_sweep(
-        tri_verts, tri_norms, tri_colors, angles, shifts, config, p_cap,
-        chunk, group, interpret, _norm_light(light_direction), post,
-        view_batch, fast_shade, g_cap=g_cap)
+    images, need = _sweep(tri_verts, tri_norms, tri_colors, angles, shifts,
+                          config, backend, cap, _norm_light(light_direction),
+                          post)
     if check_capacity:
-        return images, jnp.max(used)
+        return images, jnp.max(need)
     return images
 
 
-def turntable_capacity(tri_verts, tri_norms, config: RenderConfig,
-                       n_samples: int = 8, headroom: float = 1.5,
-                       post_shift=(0.0, 0.0, 1.0), group: int = raster_pallas.GROUP,
-                       view_batch: int = 1) -> int:
-    """Static bin capacity covering a full turntable sweep (one host sync).
+def render_turntable(tri_verts, tri_norms, tri_colors, angles,
+                     config: RenderConfig, cap: int, backend: str = "pallas",
+                     post_shift=(0.0, 0.0, 1.0),
+                     light_direction=(0.0, 0.0, 1.0), post: str = "f32",
+                     check_capacity: bool = False):
+    """``render_sequence`` with one fixed ``post_shift`` for every view.
 
-    Samples bin-slot demand at ``n_samples`` angles, applies ``headroom``.
+    ``tri_verts`` should be centered (fit_model without the final z shift);
+    each view rotates the model by its angle triple then shifts.
     """
-    return sequence_capacity(tri_verts, tri_norms,
-                             turntable_angles(n_samples), None, config,
-                             headroom=headroom, post_shift=post_shift,
-                             group=group, view_batch=view_batch)
+    shifts = _broadcast_shifts(None, angles.shape[0], post_shift)
+    return render_sequence(tri_verts, tri_norms, tri_colors, angles, shifts,
+                           config, cap=cap, backend=backend,
+                           light_direction=light_direction, post=post,
+                           check_capacity=check_capacity)
+
+
+@partial(jax.jit, static_argnames=("config", "backend"))
+def _peak_demand(tri_verts, tri_norms, angles, shifts, config: RenderConfig,
+                 backend: str):
+    def one(pose):
+        v, n = _pose_triangles(tri_verts, tri_norms, *pose)
+        ts, act = frame.geometry(v, n, config)
+        return frame.demand(ts, act, config, backend)
+
+    return jnp.max(jax.lax.map(one, (angles, shifts)))
 
 
 def sequence_capacity(tri_verts, tri_norms, angles, shifts,
-                      config: RenderConfig, headroom: float = 1.5,
-                      post_shift=(0.0, 0.0, 1.0), group: int = raster_pallas.GROUP,
-                      view_batch: int = 1) -> int:
-    """Static bin capacity covering a pose sequence (one host sync).
+                      config: RenderConfig, backend: str = "auto",
+                      headroom: float = 1.5,
+                      post_shift=(0.0, 0.0, 1.0)) -> int:
+    """Static capacity covering every pose of a sequence (one host sync).
 
-    Evaluates bin-slot demand at every given pose (``shifts=None`` → the
-    fixed ``post_shift``), takes the peak, applies ``headroom``. With
-    ``view_batch > 1`` the demand unit is a BATCH of stacked views — size
-    with the same ``view_batch`` the sweep will render with.
+    Evaluates the frame demand at every given pose (``shifts=None`` → the
+    fixed ``post_shift``), takes the peak and applies ``headroom``.
     """
-    return sequence_demand(tri_verts, tri_norms, angles, shifts, config,
-                           headroom=headroom, post_shift=post_shift,
-                           group=group, view_batch=view_batch)[0]
+    backend = frame.resolve_backend(backend)
+    shifts = _broadcast_shifts(shifts, angles.shape[0], post_shift)
+    peak = int(_peak_demand(tri_verts, tri_norms, angles, shifts,
+                            config=config, backend=backend))
+    return frame.capacity(int(peak * headroom), backend, config)
 
 
-def sequence_demand(tri_verts, tri_norms, angles, shifts,
-                    config: RenderConfig, headroom: float = 1.5,
-                    post_shift=(0.0, 0.0, 1.0),
-                    group: int = raster_pallas.GROUP,
-                    view_batch: int = 1):
-    """(p_cap, g_cap) covering a pose sequence — one host sync for both.
-
-    ``p_cap`` is the ``sequence_capacity`` bucket; ``g_cap`` is the
-    live-group grid bound (``raster_pallas`` compaction) from the peak
-    nonempty-tile count over the same poses, with the same headroom,
-    rounded up to 4 groups. ``g_cap`` is 0 (compaction off) for workloads
-    that degrade to the un-grouped path.
-    """
-    from ..ops import binning
-
-    if shifts is None:
-        shifts = jnp.broadcast_to(jnp.asarray(post_shift, jnp.float32),
-                                  (angles.shape[0], 3))
-
-    if view_batch > 1:
-        if angles.shape[0] % view_batch:
-            raise ValueError(
-                f"view_batch={view_batch} must divide {angles.shape[0]} poses")
-        peak, act = _batched_peak_demand(tri_verts, tri_norms,
-                                         angles.reshape(-1, view_batch, 3),
-                                         shifts.reshape(-1, view_batch, 3),
-                                         config=config, group=group)
-    else:
-        @jax.jit
-        def totals(tv, tn, ang, shf):
-            def one(pose):
-                angle3, shift3 = pose
-                v, n = _pose_triangles(tv, tn, angle3, shift3)
-                degenerate, backfacing = visibility_masks(v, n)
-                active = jnp.logical_and(~degenerate, ~backfacing)
-                ts = project_to_screen(v, config)
-                return raster_pallas.grouped_frame_demand(ts, active, config,
-                                                          group=group)
-
-            tot, act = jax.lax.map(one, (ang, shf))
-            return jnp.max(tot), jnp.max(act)
-
-        peak, act = totals(tri_verts, tri_norms, angles, shifts)
-    p_cap = binning.capacity_bucket(int(int(peak) * headroom), 128)
-    act = int(act)
-    if act <= 0:
-        return p_cap, 0
-    need = -(-int(act * headroom) // group)
-    return p_cap, -(-need // 4) * 4
-
-
-@partial(jax.jit, static_argnames=("config", "group"))
-def _batched_peak_demand(tri_verts, tri_norms, angles_b, shifts_b,
-                         config: RenderConfig, group: int):
-    """Peak per-BATCH (slot demand, nonempty-tile count) over batched poses.
-
-    MUST mirror ``_stage_b``'s batched dispatch decision the way
-    ``grouped_slot_total`` mirrors the single-view one: a stacked workload
-    past the packed binner's budgets degrades to the un-grouped path,
-    whose demand is the raw pair count. (slot_cap=0 in the budget check:
-    the capacity budget can't be checked before the capacity exists —
-    _stage_b re-checks it with the real bucket at dispatch.)
-    """
-    from ..ops.binsort_pallas import group_histogram, grouped_limits_ok
-
-    th, tw = raster_pallas.TILE_H, raster_pallas.TILE_W
-    ntx = -(-config.width // tw)
-    nty = -(-config.height // th)
-    v = int(angles_b.shape[1])
-    nty_total = v * raster_pallas.view_row_stride(nty, group)
-    t_cat = v * int(tri_verts.shape[0])
-    sub = 128 // group
-
-    def one(pose):
-        a_b, s_b = pose
-        _rows, tx0, cx, ty0, cy, counts = _batched_view_spans(
-            tri_verts, tri_norms, None, a_b, s_b, config, group)
-        if not grouped_limits_ok(t_cat, 0, ntx, nty_total):
-            # un-grouped path's demand; no grouped grid to compact
-            return jnp.sum(counts), jnp.zeros((), jnp.int32)
-        tile_counts, _st, _ss, gchunks = group_histogram(
-            tx0, cx, ty0, cy, ntx, nty_total, group, sub)
-        n_act = jnp.sum((tile_counts > 0).astype(jnp.int32))
-        return 128 * jnp.sum(gchunks), n_act
-
-    tot, act = jax.lax.map(one, (angles_b, shifts_b))
-    return jnp.max(tot), jnp.max(act)
-
-
-@partial(jax.jit, static_argnames=("config", "p_cap", "chunk", "interpret",
-                                   "group", "check_capacity", "post",
-                                   "view_batch", "fast_shade", "g_cap"))
-def render_sequence_pallas(tri_verts: jnp.ndarray, tri_norms: jnp.ndarray,
-                           tri_colors: jnp.ndarray, angles: jnp.ndarray,
-                           shifts: jnp.ndarray, config: RenderConfig,
-                           p_cap: int, chunk: int = 128,
-                           light_direction=(0.0, 0.0, 1.0),
-                           interpret: bool = False, group: int = raster_pallas.GROUP,
-                           check_capacity: bool = False,
-                           post: str = "f32",
-                           view_batch: int = 1,
-                           fast_shade: bool = False,
-                           g_cap: int = 0) -> jnp.ndarray:
-    """Arbitrary pose-sequence animation as ONE dispatch (one chip).
-
-    The general form of ``render_turntable_pallas``: each frame i rotates
-    the model by ``angles[i]`` (Euler XYZ degrees, the reference's
-    convention) and translates by ``shifts[i]``, so a whole camera path /
-    animation renders as one jitted, partially unrolled scan sweep —
-    per-dispatch overhead (dominant on remote-tunneled devices) is paid
-    once for N frames. Size ``p_cap`` with ``sequence_capacity``; pass
-    ``check_capacity=True`` to get the sweep's true peak bin demand back.
-    Returns (N, H, W, 3) shaded color images (float32, or uint8 with
-    ``post="u8"`` — 4x less output traffic, display-ready frames).
-    ``view_batch`` as in ``render_turntable_pallas`` (size ``p_cap`` with
-    the same value via ``sequence_capacity``).
-    """
-    images, used = _run_sweep(
-        tri_verts, tri_norms, tri_colors, angles, shifts, config, p_cap,
-        chunk, group, interpret, _norm_light(light_direction), post,
-        view_batch, fast_shade, g_cap=g_cap)
-    if check_capacity:
-        return images, jnp.max(used)
-    return images
+def turntable_capacity(tri_verts, tri_norms, config: RenderConfig,
+                       backend: str = "auto", n_samples: int = 8,
+                       headroom: float = 1.5,
+                       post_shift=(0.0, 0.0, 1.0)) -> int:
+    """Static capacity for a turntable sweep from ``n_samples`` sampled
+    angles with ``headroom`` (the view-sharded sweep checks the true peak
+    and re-renders if a view overflows)."""
+    return sequence_capacity(tri_verts, tri_norms,
+                             turntable_angles(n_samples), None, config,
+                             backend=backend, headroom=headroom,
+                             post_shift=post_shift)
 
 
 # --------------------------------------------------------------------------
@@ -570,82 +211,80 @@ def render_sequence_pallas(tri_verts: jnp.ndarray, tri_norms: jnp.ndarray,
 # --------------------------------------------------------------------------
 
 
+@partial(jax.jit, static_argnames=("config", "mesh", "axis", "backend", "cap",
+                                   "light_direction", "post"))
+def _view_sharded_sweep(tri_verts, tri_norms, tri_colors, angles, shifts, *,
+                        config: RenderConfig, mesh: Mesh, axis: str,
+                        backend: str, cap: int, light_direction, post: str):
+    """One compiled program per (mesh, capacity, ...): each device sweeps
+    its views; returns (images, mesh-peak demand)."""
+
+    # check_vma=False for the kernel: pallas_call out_shapes carry no
+    # varying-mesh-axes annotation; the body's only collective is the pmax
+    # on the demand scalar, so the check adds nothing here.
+    @partial(jax.shard_map, mesh=mesh,
+             in_specs=(P(), P(), P(), P(axis), P(axis)),
+             out_specs=(P(axis), P()), check_vma=(backend != "pallas"))
+    def shard(tv, tn, tc, ang, shf):
+        imgs, need = _sweep(tv, tn, tc, ang, shf, config, backend, cap,
+                            _norm_light(light_direction), post)
+        return imgs, jax.lax.pmax(jnp.max(need), axis)
+
+    return shard(tri_verts, tri_norms, tri_colors, angles, shifts)
+
+
 def render_turntable_sharded(tri_verts, tri_norms, tri_colors, angles,
                              config: RenderConfig, mesh: Mesh,
                              axis: str = "views", post_shift=(0.0, 0.0, 1.0),
-                             bbox_size: int = 64, chunk: int = 512,
-                             backend: str = "jnp", p_cap: int = None,
-                             interpret: bool = False, group: int = raster_pallas.GROUP,
-                             view_batch: int = 1, check_capacity: bool = False,
+                             backend: str = "auto", cap: int = None,
+                             light_direction=(0.0, 0.0, 1.0),
+                             post: str = "f32",
+                             check_capacity: bool = False,
                              auto_resize: bool = True):
     """shard_map the turntable over a mesh axis: each device renders N/D views.
 
     Geometry is replicated (it is small); views are sharded. No collectives
     are needed for the render itself — the output stays sharded over views
-    for the caller to gather or write out per shard. ``backend="pallas"``
-    runs the production Pallas rasterizer per device; ``p_cap`` (static bin
-    capacity) is derived via ``turntable_capacity`` when not given (one host
-    sync before the sharded dispatch). ``interpret=True`` runs the Pallas
-    kernels in interpreter mode so the sharded production path is testable
-    on a CPU mesh. ``view_batch`` composes with sharding: each device
-    renders ITS views in stacked batches of V (pallas backend only).
+    for the caller to gather or write out per shard. Each device runs the
+    single-device sweep (``render_sequence``) on its views, so a view is
+    bit-identical to its single-device render at the same ``cap``. ``cap``
+    is derived via ``turntable_capacity`` when not given (one host sync).
 
-    CAPACITY SAFETY (pallas backend): every sharded sweep evaluates its true
-    peak bin demand on-device and ``pmax``-merges it across the mesh — the
-    sharded counterpart of the single-chip filler's overflow auto-recovery.
-    With ``auto_resize`` (default) an undersized ``p_cap`` is detected after
-    the sweep (one host scalar read per attempt), the bucket grows to the
-    observed demand + headroom, and the sweep re-renders — no silently
-    truncated frames. ``check_capacity=True`` additionally returns the
-    mesh-peak demand scalar.
+    CAPACITY SAFETY: every sharded sweep evaluates its true peak demand
+    on-device and ``pmax``-merges it across the mesh. With ``auto_resize``
+    (default) an undersized ``cap`` is detected after the sweep (one host
+    scalar read per attempt), the bucket grows to the observed demand +
+    headroom, and the sweep re-renders — no silently truncated frames.
+    ``check_capacity=True`` additionally returns the mesh-peak demand.
     """
-    from ..ops import binning
-
+    backend = frame.resolve_backend(backend)
     n_dev = mesh.shape[axis]
-    assert angles.shape[0] % n_dev == 0, \
-        f"views ({angles.shape[0]}) must divide over {n_dev} devices"
-    if view_batch > 1:
-        if backend != "pallas":
-            raise ValueError("view_batch requires backend='pallas'")
-        assert (angles.shape[0] // n_dev) % view_batch == 0, \
-            "view_batch must divide each device's view count"
-    if backend == "pallas" and p_cap is None:
-        p_cap = turntable_capacity(tri_verts, tri_norms, config,
-                                   post_shift=post_shift, group=group,
-                                   view_batch=view_batch)
+    if angles.shape[0] % n_dev:
+        raise ValueError(f"views ({angles.shape[0]}) must divide over "
+                         f"{n_dev} devices")
+    if cap is None:
+        cap = turntable_capacity(tri_verts, tri_norms, config,
+                                 backend=backend, post_shift=post_shift)
+    shifts = _broadcast_shifts(None, angles.shape[0], post_shift)
+    if light_direction is not None:
+        light_direction = tuple(float(x) for x in light_direction)
 
-    # check_vma=False for the Pallas branch: pallas_call out_shapes carry no
-    # varying-mesh-axes annotation; the body's only collective is the pmax
-    # on the demand scalar, so the check adds nothing here.
-    def sweep(cap):
-        @partial(jax.shard_map, mesh=mesh,
-                 in_specs=(P(), P(), P(), P(axis)),
-                 out_specs=(P(axis), P()),
-                 check_vma=(backend != "pallas"))
-        def shard(tv, tn, tc, ang):
-            if backend == "pallas":
-                imgs, used = render_turntable_pallas(
-                    tv, tn, tc, ang, config, p_cap=cap,
-                    post_shift=post_shift, interpret=interpret, group=group,
-                    view_batch=view_batch, check_capacity=True)
-                return imgs, jax.lax.pmax(used, axis)
-            imgs = render_turntable(tv, tn, tc, ang, config,
-                                    post_shift=post_shift,
-                                    bbox_size=bbox_size, chunk=chunk)
-            return imgs, jnp.int32(0)     # jnp path has no static capacity
+    def sweep(c):
+        return _view_sharded_sweep(
+            tri_verts, tri_norms, tri_colors, angles, shifts, config=config,
+            mesh=mesh, axis=axis, backend=backend, cap=c,
+            light_direction=light_direction, post=post)
 
-        return shard(tri_verts, tri_norms, tri_colors, angles)
-
-    images, used = sweep(p_cap)
-    if backend == "pallas" and auto_resize:
+    images, need = sweep(cap)
+    if auto_resize:
         for _ in range(4):                # bounded: bucket grows every pass
-            peak = int(used)              # one host sync per attempt
-            if peak <= p_cap:
+            peak = int(need)              # one host sync per attempt
+            if peak <= cap:
                 break
-            p_cap = binning.capacity_bucket(peak * 5 // 4, 128)
-            images, used = sweep(p_cap)
+            cap = frame.capacity(peak * 5 // 4, backend, config)
+            images, need = sweep(cap)
     if check_capacity:
-        return images, used
+        return images, need
     return images
 
 
@@ -656,81 +295,44 @@ def render_turntable_sharded(tri_verts, tri_norms, tri_colors, angles,
 
 def triangle_shard_capacity(tri_verts, tri_norms, config: RenderConfig,
                             mesh: Mesh, axis: str = "tris",
-                            group: int = raster_pallas.GROUP, headroom_num: int = 5,
+                            backend: str = "auto", headroom_num: int = 5,
                             headroom_den: int = 4) -> int:
-    """Static per-shard bin capacity for triangle-sharded Pallas rendering.
+    """Static per-shard capacity for triangle-sharded rendering.
 
-    Computes each shard's bin-slot demand on its own device, takes the mesh
+    Computes each shard's frame demand on its own device, takes the mesh
     max (one ``pmax``), and buckets with headroom. One host sync.
     """
-    from ..ops import binning, raster_pallas
+    backend = frame.resolve_backend(backend)
 
-    # check_vma=False: grouped_slot_total's histogram includes a Pallas
-    # bitonic sort, and pallas_call out_shapes carry no vma annotation —
-    # same reasoning as the render shard_maps below
     @partial(jax.shard_map, mesh=mesh, in_specs=(P(axis), P(axis)),
-             out_specs=P(), check_vma=False)
-    def totals(tv, tn):
-        degenerate, backfacing = visibility_masks(tv, tn)
-        act = jnp.logical_and(~degenerate, ~backfacing)
-        ts = project_to_screen(tv, config)
-        tot = raster_pallas.grouped_slot_total(ts, act, config, group=group)
-        return jax.lax.pmax(tot, axis)
+             out_specs=P())
+    def peak(tv, tn):
+        ts, act = frame.geometry(tv, tn, config)
+        return jax.lax.pmax(frame.demand(ts, act, config, backend), axis)
 
-    peak = int(totals(tri_verts, tri_norms))
-    return binning.capacity_bucket(peak * headroom_num // headroom_den, 128)
+    need = int(peak(tri_verts, tri_norms))
+    return frame.capacity(need * headroom_num // headroom_den, backend,
+                          config)
 
 
-def render_triangle_sharded(tri_verts, tri_norms, tri_colors,
-                            config: RenderConfig, mesh: Mesh,
-                            axis: str = "tris",
-                            bbox_size: int = 64, chunk: int = 512,
-                            light_direction=(0.0, 0.0, 1.0),
-                            backend: str = "jnp", p_cap: int = None,
-                            interpret: bool = False, group: int = raster_pallas.GROUP,
-                            check_capacity: bool = False):
-    """Shard triangles across the mesh; merge partial G-buffers by z-argmin.
-
-    Each device rasterizes its triangle shard into a full-resolution partial
-    G-buffer. The merge is an all-reduce min over a packed (z, shard) key
-    followed by a select — the deterministic, lock-free ICI equivalent of the
-    reference's per-pixel OpenMP lock grid (pyx:69-77,233-242).
-
-    ``backend="pallas"`` rasterizes each shard with the production Pallas
-    kernel (``p_cap`` derived via ``triangle_shard_capacity`` when not
-    given); depth ties still resolve exactly like the sequential reference,
-    because shards hold contiguous triangle ranges — within a shard the
-    kernel's rank tiebreak applies, across shards the lower shard index
-    (= lower triangle indices) wins. ``check_capacity=True`` appends the
-    mesh-max bin-slot demand to the return tuple so callers can assert
-    ``used <= p_cap`` (geometry was silently truncated otherwise).
-    """
-    t = tri_verts.shape[0]
-    n_dev = mesh.shape[axis]
-    assert t % n_dev == 0, f"triangles ({t}) must divide over {n_dev} devices"
-    if backend == "pallas" and p_cap is None:
-        p_cap = triangle_shard_capacity(tri_verts, tri_norms, config, mesh,
-                                        axis=axis, group=group)
-
-    light = _norm_light(light_direction)
+@partial(jax.jit, static_argnames=("config", "mesh", "axis", "backend", "cap",
+                                   "light_direction"))
+def _triangle_sharded_frame(tri_verts, tri_norms, tri_colors, *,
+                            config: RenderConfig, mesh: Mesh, axis: str,
+                            backend: str, cap: int, light_direction):
+    """One compiled program per (mesh, capacity, ...): per-shard frames,
+    z-argmin merge, then shading; returns (color, z, normal, demand)."""
 
     @partial(jax.shard_map, mesh=mesh,
              in_specs=(P(axis), P(axis), P(axis)), out_specs=P(),
              check_vma=(backend != "pallas"))
     def shard(tv, tn, tc):
-        if backend == "pallas":
-            color, z, normal, used = _render_view_pallas(
-                tv, tn, tc, config, p_cap, 128, group, interpret, light)
-            used = jax.lax.pmax(used, axis)
-        else:
-            color, z, normal = render_view(tv, tn, tc, config,
-                                           bbox_size=bbox_size, chunk=chunk,
-                                           light_direction=light_direction)
-            used = jnp.int32(0)
+        color, z, normal, _img, need = frame.frame_body(
+            tv, tn, tc, config, backend, cap)
+        need = jax.lax.pmax(need, axis)
         my = jax.lax.axis_index(axis)
         # Exact two-step z-argmin: min depth across shards, then the lowest
-        # shard index among exact-depth winners (earlier shards hold lower
-        # triangle indices, so depth ties resolve like the sequential order).
+        # shard index among exact-depth winners.
         zmin = jax.lax.pmin(z[..., 0], axis)
         cand = z[..., 0] == zmin
         shard_key = jnp.where(cand, my, jnp.iinfo(jnp.int32).max)
@@ -738,9 +340,49 @@ def render_triangle_sharded(tri_verts, tri_norms, tri_colors,
         win = cand & (smin == my)
         color = jax.lax.psum(jnp.where(win[..., None], color, 0.0), axis)
         normal = jax.lax.psum(jnp.where(win[..., None], normal, 0.0), axis)
-        return color, zmin[..., None], normal, used
+        return color, zmin[..., None], normal, need
 
-    color, z, normal, used = shard(tri_verts, tri_norms, tri_colors)
+    color, z, normal, need = shard(tri_verts, tri_norms, tri_colors)
+    light = _norm_light(light_direction)
+    if light is not None:
+        color = lambert_shade(color, normal, light)
+    return color, z, normal, need
+
+
+def render_triangle_sharded(tri_verts, tri_norms, tri_colors,
+                            config: RenderConfig, mesh: Mesh,
+                            axis: str = "tris",
+                            light_direction=(0.0, 0.0, 1.0),
+                            backend: str = "auto", cap: int = None,
+                            check_capacity: bool = False):
+    """Shard triangles across the mesh; merge partial G-buffers by z-argmin.
+
+    Each device rasterizes its triangle shard into a full-resolution partial
+    G-buffer through the frame body. The merge is a ``pmin`` over depth,
+    then a ``pmin`` over the shard index among exact-depth winners, then a
+    select — the deterministic, lock-free equivalent of the reference's
+    per-pixel OpenMP lock grid (pyx:69-77,233-242). Depth ties resolve
+    exactly like the sequential reference, because shards hold contiguous
+    triangle ranges: within a shard the rasterizer's triangle-order
+    tiebreak applies, across shards the lower shard index (= lower triangle
+    indices) wins. ``cap`` is derived via ``triangle_shard_capacity`` when
+    not given. Returns (shaded color, z, normal); ``check_capacity=True``
+    appends the mesh-max demand (the frame is complete iff it is
+    ``<= cap``).
+    """
+    backend = frame.resolve_backend(backend)
+    t = tri_verts.shape[0]
+    n_dev = mesh.shape[axis]
+    if t % n_dev:
+        raise ValueError(f"triangles ({t}) must divide over {n_dev} devices")
+    if cap is None:
+        cap = triangle_shard_capacity(tri_verts, tri_norms, config, mesh,
+                                      axis=axis, backend=backend)
+    if light_direction is not None:
+        light_direction = tuple(float(x) for x in light_direction)
+    color, z, normal, need = _triangle_sharded_frame(
+        tri_verts, tri_norms, tri_colors, config=config, mesh=mesh, axis=axis,
+        backend=backend, cap=cap, light_direction=light_direction)
     if check_capacity:
-        return color, z, normal, used
+        return color, z, normal, need
     return color, z, normal

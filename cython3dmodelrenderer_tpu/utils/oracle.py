@@ -6,11 +6,11 @@ rasterization semantics as the device pipeline (reference behavior per
 sequential triangles, strict-< z test, ceil bbox, λ≥0 coverage, z∈[0,1]
 range check, Lambert shading. Used by the test suite as the ground truth the
 batched/Pallas paths must match; everything is float32 so comparisons against
-the TPU path are tight.
+the device path are tight.
 
 There is no test suite in the reference repo (SURVEY §4); the reference's own
 oracle was its dual py/cy implementation — this module plays the same role
-for the TPU framework.
+for this framework.
 """
 from __future__ import annotations
 

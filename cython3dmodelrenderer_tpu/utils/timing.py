@@ -1,7 +1,7 @@
 """Timing and profiling helpers.
 
 The reference's only instrumentation was tqdm + printf debug lines (SURVEY
-§5); this module provides the TPU-native equivalents: a block-until-ready
+§5); this module provides the device-side equivalents: a block-until-ready
 frame timer, a simple FrameStats aggregate, and a context manager around
 ``jax.profiler.trace`` for perfetto traces.
 """

@@ -8,7 +8,11 @@ with virtual CPU devices:
 Two modes are shown (SURVEY §5 'distributed communication backend'):
 * views sharded over the mesh (data parallel over cameras, no collectives);
 * triangles sharded with an exact z-argmin merge (pmin/psum collectives) —
-  the ICI equivalent of the reference's locked z-buffer writes.
+  the collective equivalent of the reference's locked z-buffer writes.
+
+It runs on the visible devices of JAX's default platform: every GPU of the
+host, or the virtual CPU devices above. The backend follows the platform
+(GPU → tile kernel, CPU → XLA oracle).
 """
 import os
 import sys
@@ -20,10 +24,6 @@ if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", "")
                                + " --xla_force_host_platform_device_count=8").strip()
 
 import jax
-
-if jax.default_backend() not in ("tpu",):
-    jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 import numpy as np
 
@@ -33,13 +33,18 @@ from cython3dmodelrenderer_tpu.parallel import multiview
 from cython3dmodelrenderer_tpu.parallel.mesh import make_mesh
 
 OBJECTS = os.environ.get("CRENDER_OBJECTS", "/root/reference/objects")
+ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                      "assets")
 
 
 def main():
     n_dev = len(jax.devices())
     print(f"{n_dev} devices: {jax.devices()}")
 
-    model = Model.read_model(os.path.join(OBJECTS, "cube.obj"))
+    path = os.path.join(OBJECTS, "cube.obj")
+    if not os.path.exists(path):     # the vendored copy
+        path = os.path.join(ASSETS, "cube.obj")
+    model = Model.read_model(path)
     model.rotate([30, 40, 0])
     model.shift(-model.get_mean_vertex())
     model.scale(1.0 / model.get_max_span())
@@ -55,8 +60,7 @@ def main():
     mesh = make_mesh([("views", n_dev)])
     angles = multiview.turntable_angles(2 * n_dev)
     frames = multiview.render_turntable_sharded(
-        tv, tn, tc, angles, config, mesh=mesh, axis="views",
-        bbox_size=64, chunk=16)
+        tv, tn, tc, angles, config, mesh=mesh, axis="views")
     jax.block_until_ready(frames)
     print(f"view-sharded turntable: {frames.shape} across {n_dev} devices")
 
@@ -71,7 +75,7 @@ def main():
     tn2 = jnp.pad(tn, ((0, pad), (0, 0), (0, 0)))
     tc2 = jnp.pad(tc, ((0, pad), (0, 0), (0, 0)))
     color, z, normal = multiview.render_triangle_sharded(
-        tv2, tn2, tc2, config, mesh=mesh2, axis="tris", bbox_size=64, chunk=4)
+        tv2, tn2, tc2, config, mesh=mesh2, axis="tris")
     jax.block_until_ready(color)
     covered = float(jnp.mean((z < config.z_init).astype(jnp.float32)))
     print(f"triangle-sharded render: color {color.shape}, "

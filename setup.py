@@ -11,14 +11,12 @@ from setuptools import find_packages, setup
 setup(
     name="cython3dmodelrenderer-tpu",
     version="0.1.0",
-    description="TPU-native 3D software rasterizer (JAX/XLA/Pallas)",
+    description="3D software rasterizer for the GPU (JAX/XLA/Pallas)",
     packages=find_packages(include=["cython3dmodelrenderer_tpu*"]),
     package_data={"cython3dmodelrenderer_tpu.native": ["*.cpp"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
         "numpy",
-        "opencv-python-headless",
-        "tqdm",
     ],
 )

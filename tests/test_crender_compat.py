@@ -53,9 +53,11 @@ def test_reference_cy_usage(trex_path, tmp_path):
     out = image[::-1].astype("uint8")
     assert out.max() > 0
 
-    import cv2
+    from cython3dmodelrenderer_tpu.utils.png import read_png, write_png
 
-    cv2.imwrite(str(tmp_path / "compat.png"), out)
+    write_png(str(tmp_path / "compat.png"), out)
+    np.testing.assert_array_equal(read_png(str(tmp_path / "compat.png")),
+                                  out)
 
 
 def test_top_level_reexport():

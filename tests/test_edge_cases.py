@@ -7,12 +7,13 @@ from cython3dmodelrenderer_tpu import (AdvancedPixelBufferFiller, Model,
                                        NoIllumination, Renderer,
                                        SimpleIterator)
 from cython3dmodelrenderer_tpu.config import RenderConfig
-from cython3dmodelrenderer_tpu.ops import raster_ref, raster_pallas
+from cython3dmodelrenderer_tpu.ops import binning, raster_ref, raster_pallas
 from cython3dmodelrenderer_tpu.ops.projection import (project_to_screen,
                                                       visibility_masks)
 
 
 def render_both(tris, colors, normals, config):
+    """(oracle, tile kernel in interpret mode) G-buffers of one scene."""
     tv, tn, tc = (jnp.asarray(tris), jnp.asarray(normals),
                   jnp.asarray(colors))
     degenerate, backfacing = visibility_masks(tv, tn)
@@ -21,7 +22,12 @@ def render_both(tris, colors, normals, config):
     bbox = raster_ref.required_bbox_size(ts, active, config)
     ref = raster_ref.rasterize(ts, tc, tn, active, config,
                                bbox_size=bbox, chunk=8)
-    pal = raster_pallas.rasterize(ts, tc, tn, active, config, interpret=True)
+    total = int(raster_pallas.pair_total(ts, active, config))
+    pal, used = raster_pallas.rasterize(
+        ts, tc, tn, active, config,
+        p_cap=binning.capacity_bucket(total, raster_pallas.CHUNK),
+        interpret=True)
+    assert int(used) == total
     return ref, pal
 
 
@@ -89,22 +95,3 @@ def test_empty_obj_model(tmp_path):
                         use_tqdm=False)
     image = renderer.render(model)
     assert image.get_image().max() == 0
-
-
-def test_jnp_backend_refuses_huge_fragment_scene(monkeypatch):
-    """On TPU the jnp fallback must refuse (clear ValueError) scenes whose
-    max triangle bbox would blow its chunk x bbox^2 fragment working set —
-    past that point the fragment grid has OOM-crashed the TPU worker. The
-    guard keys on the default backend; fake it so the CPU suite exercises
-    the refusal."""
-    import jax
-
-    filler = AdvancedPixelBufferFiller(1024, 1024, fov=60, backend="jnp")
-    # one screen-filling triangle -> bbox ~ full resolution
-    tris = jnp.asarray([[[-50.0, -50.0, 2.0], [50.0, -50.0, 2.0],
-                         [0.0, 80.0, 2.0]]], jnp.float32)
-    normals = jnp.asarray([[[0.0, 0.0, -1.0]] * 3], jnp.float32)
-    colors = jnp.full((1, 3, 3), 200.0, jnp.float32)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    with pytest.raises(ValueError, match="fragment budget"):
-        filler._rasterize(tris, normals, colors)

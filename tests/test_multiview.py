@@ -1,10 +1,15 @@
-"""Multi-view vmapped and sharded rendering tests (8-device CPU mesh)."""
+"""Pose-sweep and sharded rendering tests (8-device CPU mesh, jnp backend).
+
+The tile-kernel backend of the same paths runs on the GPU: the ``gpu``
+tests in ``test_raster_kernel.py`` and ``chip_smoke.py --four-cards``.
+"""
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
 from cython3dmodelrenderer_tpu.config import RenderConfig
+from cython3dmodelrenderer_tpu.ops import frame
 from cython3dmodelrenderer_tpu.parallel.mesh import make_mesh
 from cython3dmodelrenderer_tpu.parallel import multiview
 
@@ -23,11 +28,16 @@ def tiny_scene(t=16, seed=0):
 CONFIG = RenderConfig(height=64, width=64, fov=45)
 
 
+def _need_devices(n):
+    if len(jax.devices()) < n:
+        pytest.skip(f"needs {n} devices")
+
+
 def test_turntable_shapes_and_content():
     tv, tn, tc = tiny_scene()
     angles = multiview.turntable_angles(4)
-    out = multiview.render_turntable(tv, tn, tc, angles, CONFIG,
-                                     bbox_size=32, chunk=16)
+    out = multiview.render_turntable(tv, tn, tc, angles, CONFIG, cap=32,
+                                     backend="jnp")
     assert out.shape == (4, 64, 64, 3)
     assert float(jnp.max(out)) > 0
     # view 0 must equal a single-view render at the same pose
@@ -36,303 +46,93 @@ def test_turntable_shapes_and_content():
                                          bbox_size=32, chunk=16)
     np.testing.assert_allclose(np.asarray(out[0]), np.asarray(single),
                                atol=1e-3)
+    assert not np.allclose(np.asarray(out[0]), np.asarray(out[1]))
 
 
-def test_turntable_views_differ():
-    tv, tn, tc = tiny_scene()
+def test_sequence_frames_equal_single_frames():
+    """Each sweep frame == the frame body on the same posed arrays."""
+    tv, tn, tc = tiny_scene(t=24, seed=2)
     angles = multiview.turntable_angles(4)
-    out = np.asarray(multiview.render_turntable(tv, tn, tc, angles, CONFIG,
-                                                bbox_size=32, chunk=16))
-    assert not np.allclose(out[0], out[1])
+    shifts = jnp.asarray(np.random.RandomState(1).uniform(
+        -0.2, 0.2, (4, 3)).astype(np.float32)) + jnp.float32([0, 0, 1.5])
+    cap = multiview.sequence_capacity(tv, tn, angles, shifts, CONFIG,
+                                      backend="jnp")
+    light = multiview._norm_light((0.0, 0.0, 1.0))
+    seq, need = multiview.render_sequence(tv, tn, tc, angles, shifts, CONFIG,
+                                          cap=cap, backend="jnp", post="u8",
+                                          check_capacity=True)
+    assert int(need) <= cap
+    for i in range(4):
+        v, n = multiview._pose_triangles(tv, tn, angles[i], shifts[i])
+        img = frame.render_frame(v, n, tc, config=CONFIG, backend="jnp",
+                                 cap=cap, post="lambert_u8", light=light)[3]
+        np.testing.assert_array_equal(np.asarray(seq[i]), np.asarray(img))
+    # float frames are the shaded color before quantization
+    f32 = np.asarray(multiview.render_sequence(
+        tv, tn, tc, angles, shifts, CONFIG, cap=cap, backend="jnp"))
+    np.testing.assert_array_equal(f32.astype(np.uint8), np.asarray(seq))
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
-def test_view_sharded_matches_single_chip():
+def test_view_sharded_matches_single_device():
+    _need_devices(8)
     tv, tn, tc = tiny_scene()
     mesh = make_mesh([("views", 8)])
     angles = multiview.turntable_angles(8)
+    cap = multiview.sequence_capacity(tv, tn, angles, None, CONFIG,
+                                      backend="jnp")
     sharded = np.asarray(multiview.render_turntable_sharded(
-        tv, tn, tc, angles, CONFIG, mesh=mesh, axis="views",
-        bbox_size=32, chunk=16))
+        tv, tn, tc, angles, CONFIG, mesh=mesh, axis="views", backend="jnp",
+        cap=cap))
     local = np.asarray(multiview.render_turntable(
-        tv, tn, tc, angles, CONFIG, bbox_size=32, chunk=16))
-    np.testing.assert_allclose(sharded, local, atol=1e-3)
+        tv, tn, tc, angles, CONFIG, cap=cap, backend="jnp"))
+    np.testing.assert_array_equal(sharded, local)
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
-def test_triangle_sharded_matches_single_chip():
+def test_triangle_sharded_matches_single_device():
+    _need_devices(8)
     tv, tn, tc = tiny_scene(t=32, seed=3)
     tv = tv + jnp.asarray([0.0, 0.0, 1.0])
     mesh = make_mesh([("tris", 8)])
     color_s, z_s, n_s = multiview.render_triangle_sharded(
-        tv, tn, tc, CONFIG, mesh=mesh, axis="tris", bbox_size=32, chunk=4)
+        tv, tn, tc, CONFIG, mesh=mesh, axis="tris", backend="jnp")
     color_l, z_l, n_l = multiview.render_view(tv, tn, tc, CONFIG,
                                               bbox_size=32, chunk=4)
-    np.testing.assert_allclose(np.asarray(z_s), np.asarray(z_l), atol=1e-6)
+    np.testing.assert_array_equal(np.asarray(z_s), np.asarray(z_l))
     np.testing.assert_allclose(np.asarray(color_s), np.asarray(color_l),
                                atol=1e-3)
     np.testing.assert_allclose(np.asarray(n_s), np.asarray(n_l), atol=1e-5)
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 def test_2d_mesh_views_by_tris():
+    _need_devices(8)
     from __graft_entry__ import dryrun_multichip
 
     dryrun_multichip(8)
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
-def test_view_sharded_pallas_backend_matches_jnp():
-    """The PRODUCTION Pallas rasterizer under shard_map (interpret mode)."""
-    tv, tn, tc = tiny_scene(t=32, seed=5)
-    mesh = make_mesh([("views", 8)])
-    angles = multiview.turntable_angles(8)
-    # p_cap intentionally omitted: derived via turntable_capacity
-    pallas_out = np.asarray(multiview.render_turntable_sharded(
-        tv, tn, tc, angles, CONFIG, mesh=mesh, axis="views",
-        backend="pallas", interpret=True))
-    jnp_out = np.asarray(multiview.render_turntable_sharded(
-        tv, tn, tc, angles, CONFIG, mesh=mesh, axis="views",
-        bbox_size=32, chunk=16))
-    assert pallas_out.shape == jnp_out.shape == (8, 64, 64, 3)
-    # same winners except float-rounding at triangle edges
-    frac = (np.abs(pallas_out - jnp_out).max(-1) > 0.5).mean()
-    assert frac < 1e-3, frac
-    assert pallas_out.max() > 0
-
-
-def test_turntable_pallas_interpret_matches_jnp():
-    """Pallas multiview (interpret mode) == jnp multiview."""
-    tv, tn, tc = tiny_scene(t=24, seed=9)
-    angles = multiview.turntable_angles(3)
-    p_cap = multiview.turntable_capacity(tv, tn, CONFIG, n_samples=3)
-    pallas_out = np.asarray(multiview.render_turntable_pallas(
-        tv, tn, tc, angles, CONFIG, p_cap=p_cap, interpret=True))
-    jnp_out = np.asarray(multiview.render_turntable(
-        tv, tn, tc, angles, CONFIG, bbox_size=32, chunk=8))
-    # same winners except float-rounding at triangle edges
-    frac = (np.abs(pallas_out - jnp_out).max(-1) > 0.5).mean()
-    assert frac < 1e-3, frac
-    assert pallas_out.max() > 0
-
-
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
-def test_triangle_sharded_pallas_backend_matches_jnp():
-    """The PRODUCTION Pallas rasterizer under TRIANGLE sharding (interpret):
-    per-shard partial G-buffers from the Pallas kernel, z-argmin merge over
-    the mesh, against the jnp-backend sharded render."""
-    tv, tn, tc = tiny_scene(t=32, seed=7)
-    tv = tv + jnp.asarray([0.0, 0.0, 1.0])
-    mesh = make_mesh([("tris", 8)])
-    # p_cap intentionally omitted: derived via triangle_shard_capacity
-    color_p, z_p, n_p = multiview.render_triangle_sharded(
-        tv, tn, tc, CONFIG, mesh=mesh, axis="tris",
-        backend="pallas", interpret=True)
-    color_j, z_j, n_j = multiview.render_triangle_sharded(
-        tv, tn, tc, CONFIG, mesh=mesh, axis="tris", bbox_size=32, chunk=4)
-    assert np.asarray(color_p).shape == np.asarray(color_j).shape
-    # same winners except float-rounding at triangle edges
-    frac = (np.abs(np.asarray(z_p) - np.asarray(z_j)).max(-1) > 1e-5).mean()
-    assert frac < 1e-3, frac
-    cfrac = (np.abs(np.asarray(color_p) - np.asarray(color_j)).max(-1)
-             > 0.5).mean()
-    assert cfrac < 1e-3, cfrac
-    assert np.asarray(color_p).max() > 0
-
-
-def test_render_sequence_pallas_generalizes_turntable():
-    """The pose-sequence single-dispatch API: with constant shifts it must
-    equal the turntable sweep exactly; with varying shifts each frame gets
-    its own translation (frames differ)."""
-    tv, tn, tc = tiny_scene(t=24, seed=9)
-    angles = multiview.turntable_angles(4)
-    p_cap = multiview.sequence_capacity(tv, tn, angles, None, CONFIG)
-
-    tt = np.asarray(multiview.render_turntable_pallas(
-        tv, tn, tc, angles, CONFIG, p_cap=p_cap, interpret=True))
-    const_shifts = jnp.broadcast_to(jnp.float32([0.0, 0.0, 1.0]), (4, 3))
-    seq, used = multiview.render_sequence_pallas(
-        tv, tn, tc, angles, const_shifts, CONFIG, p_cap=p_cap,
-        interpret=True, check_capacity=True)
-    np.testing.assert_array_equal(np.asarray(seq), tt)
-    assert int(used) <= p_cap
-
-    shifts = jnp.asarray([[0.0, 0.0, 1.0 + 0.5 * i] for i in range(4)],
-                         jnp.float32)
-    p_cap2 = multiview.sequence_capacity(tv, tn, angles, shifts, CONFIG)
-    seq2 = np.asarray(multiview.render_sequence_pallas(
-        tv, tn, tc, angles, shifts, CONFIG, p_cap=p_cap2, interpret=True))
-    assert seq2.shape == tt.shape
-    # receding frames shrink: covered pixel count strictly decreases
-    covered = [(f.max(-1) > 0).sum() for f in seq2]
-    assert covered[0] > covered[-1] > 0
-
-
-def test_sequence_post_u8_quantizes():
-    """post="u8" returns uint8 frames equal to the f32 sweep truncated —
-    the sequence analogue of the single-frame fused quantize pass."""
-    tv, tn, tc = tiny_scene(t=24, seed=9)
-    angles = multiview.turntable_angles(3)
-    p_cap = multiview.sequence_capacity(tv, tn, angles, None, CONFIG)
-
-    f32 = np.asarray(multiview.render_turntable_pallas(
-        tv, tn, tc, angles, CONFIG, p_cap=p_cap, interpret=True))
-    u8 = np.asarray(multiview.render_turntable_pallas(
-        tv, tn, tc, angles, CONFIG, p_cap=p_cap, interpret=True, post="u8"))
-    assert u8.dtype == np.uint8
-    np.testing.assert_array_equal(u8, f32.astype(np.uint8))
-
-    shifts = jnp.broadcast_to(jnp.float32([0.0, 0.0, 1.0]), (3, 3))
-    sq = np.asarray(multiview.render_sequence_pallas(
-        tv, tn, tc, angles, shifts, CONFIG, p_cap=p_cap, interpret=True,
-        post="u8"))
-    assert sq.dtype == np.uint8
-    np.testing.assert_array_equal(sq, u8)
-
-
-def test_view_batched_sweep_bit_identical():
-    """view_batch > 1 stacks V views' tiles into ONE kernel launch; every
-    view's pixels must stay BIT-IDENTICAL to the view_batch=1 sweep (plane
-    evaluation is view-relative in the stacked grid). Covers batch sizes
-    that divide the sweep both evenly into >1 scan steps (V=2) and as one
-    single launch (V=4), plus the sequence API with varying shifts."""
-    tv, tn, tc = tiny_scene(t=24, seed=9)
-    angles = multiview.turntable_angles(4)
-    p_cap1 = multiview.sequence_capacity(tv, tn, angles, None, CONFIG)
-    want = np.asarray(multiview.render_turntable_pallas(
-        tv, tn, tc, angles, CONFIG, p_cap=p_cap1, interpret=True))
-
-    for vb in (2, 4):
-        p_cap = multiview.sequence_capacity(tv, tn, angles, None, CONFIG,
-                                            view_batch=vb)
-        got, used = multiview.render_turntable_pallas(
-            tv, tn, tc, angles, CONFIG, p_cap=p_cap, interpret=True,
-            view_batch=vb, check_capacity=True)
-        assert int(used) <= p_cap
-        np.testing.assert_array_equal(np.asarray(got), want)
-
-    # the sequence API with per-pose shifts, batched, matches unbatched
-    shifts = jnp.asarray([[0.0, 0.0, 1.0 + 0.5 * i] for i in range(4)],
-                         jnp.float32)
-    p_seq1 = multiview.sequence_capacity(tv, tn, angles, shifts, CONFIG)
-    seq1 = np.asarray(multiview.render_sequence_pallas(
-        tv, tn, tc, angles, shifts, CONFIG, p_cap=p_seq1, interpret=True))
-    p_seq2 = multiview.sequence_capacity(tv, tn, angles, shifts, CONFIG,
-                                         view_batch=2)
-    seq2 = np.asarray(multiview.render_sequence_pallas(
-        tv, tn, tc, angles, shifts, CONFIG, p_cap=p_seq2, interpret=True,
-        view_batch=2))
-    np.testing.assert_array_equal(seq2, seq1)
-
-    # u8 post mode through the batched path
-    u8 = np.asarray(multiview.render_turntable_pallas(
-        tv, tn, tc, angles, CONFIG,
-        p_cap=multiview.sequence_capacity(tv, tn, angles, None, CONFIG,
-                                          view_batch=2),
-        interpret=True, view_batch=2, post="u8"))
-    assert u8.dtype == np.uint8
-    np.testing.assert_array_equal(u8, want.astype(np.uint8))
-
-
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
-def test_view_batched_composes_with_sharding():
-    """view_batch inside each device's shard: sharded+batched must equal
-    the plain single-chip sweep bit-for-bit (pallas interpret)."""
-    tv, tn, tc = tiny_scene(t=24, seed=9)
+def test_sharded_overflow_detects_resizes_rerenders():
+    """An undersized capacity under shard_map is DETECTED via the pmax'd
+    peak demand and repaired by re-rendering at a grown bucket; with
+    ``auto_resize`` off the truncation stays detectable."""
+    _need_devices(4)
+    rng = np.random.RandomState(4)
+    big = jnp.asarray(rng.uniform(-0.6, 0.6, (8, 3, 3)).astype(np.float32))
+    tn = jnp.asarray(np.tile(np.float32([0, 0, -1]), (8, 3, 1)))
+    tc = jnp.asarray(rng.uniform(0, 255, (8, 3, 3)).astype(np.float32))
     mesh = make_mesh([("views", 4)])
-    angles = multiview.turntable_angles(8)   # 2 per device, batched as 2
-    p1 = multiview.sequence_capacity(tv, tn, angles, None, CONFIG)
-    want = np.asarray(multiview.render_turntable_pallas(
-        tv, tn, tc, angles, CONFIG, p_cap=p1, interpret=True))
-    got = np.asarray(multiview.render_turntable_sharded(
-        tv, tn, tc, angles, CONFIG, mesh=mesh, backend="pallas",
-        interpret=True, view_batch=2))
-    np.testing.assert_array_equal(got, want)
-
-
-def test_view_batched_ungrouped_fallback():
-    """The un-grouped (group=1) kernel is the degrade target past the
-    packed binner's budgets — stacked view batching must render correctly
-    through it too (view-relative planes + stacked y-bbox in the one-tile
-    kernel)."""
-    from cython3dmodelrenderer_tpu.ops import binning
-    from cython3dmodelrenderer_tpu.ops import raster_pallas as rp
-
-    tv, tn, tc = tiny_scene(t=24, seed=9)
-    angles = multiview.turntable_angles(2)
-    shifts = jnp.broadcast_to(jnp.float32([0.0, 0.0, 1.0]), (2, 3))
-    light = multiview._norm_light((0.0, 0.0, 1.0))
-
-    rows, tx0, cx, ty0, cy, counts = multiview._batched_view_spans(
-        tv, tn, tc, angles, shifts, CONFIG, group=1)
-    p_cap = binning.capacity_bucket(int(jnp.sum(counts)), 128)
-    th, tw = rp.TILE_H, rp.TILE_W
-    (color, z, _n), _na, used, _pi = rp._stage_b_jit(
-        rows, tx0, cx, ty0, cy, counts, config=CONFIG, p_cap=p_cap,
-        grid_cap=0, tile_h=th, tile_w=tw, chunk=128, interpret=True,
-        group=1, n_views=2)
-    assert int(used) <= p_cap
-
-    for i in range(2):
-        _c, z1, _n1, _u = multiview._render_view_pallas(
-            *multiview._pose_triangles(tv, tn, angles[i], shifts[i]),
-            tc, CONFIG, p_cap, 128, 1, True, light)
-        np.testing.assert_array_equal(np.asarray(z[i]), np.asarray(z1))
-
-
-def test_fast_shade_sweep():
-    """Opt-in Gouraud fast mode in the sweeps: every frame must equal the
-    single-frame fast-shade dispatch (render_frame post="fast_lambert_u8")
-    bit-for-bit, for both the per-view and the view-batched sweep."""
-    from cython3dmodelrenderer_tpu.ops import raster_pallas as rp
-
-    tv, tn, tc = tiny_scene(t=24, seed=9)
     angles = multiview.turntable_angles(4)
-    shifts = jnp.broadcast_to(jnp.float32([0.0, 0.0, 1.0]), (4, 3))
-    light = multiview._norm_light((0.0, 0.0, 1.0))
-    p_cap = multiview.sequence_capacity(tv, tn, angles, None, CONFIG)
-
-    want = []
-    for i in range(4):
-        pv, pn = multiview._pose_triangles(tv, tn, angles[i], shifts[i])
-        *_rest, img = rp.render_frame(pv, pn, tc, CONFIG, p_cap, 0,
-                                      group=rp.GROUP, interpret=True,
-                                      post="fast_lambert_u8", light=light)
-        want.append(np.asarray(img))
-    want = np.stack(want)
-
-    got1 = np.asarray(multiview.render_turntable_pallas(
-        tv, tn, tc, angles, CONFIG, p_cap=p_cap, interpret=True,
-        post="u8", fast_shade=True))
-    np.testing.assert_array_equal(got1, want)
-
-    p_cap2 = multiview.sequence_capacity(tv, tn, angles, None, CONFIG,
-                                         view_batch=2)
-    got2 = np.asarray(multiview.render_turntable_pallas(
-        tv, tn, tc, angles, CONFIG, p_cap=p_cap2, interpret=True,
-        post="u8", fast_shade=True, view_batch=2))
-    # batched fast mode: same Gouraud pipeline, stacked grid — the
-    # per-frame result must still match exactly
-    np.testing.assert_array_equal(got2, want)
-
-
-def test_view_batched_odd_image_sizes():
-    """Non-tile-aligned image sizes through the batched sweep: the stride
-    padding (nty → multiple of group) and per-view crop must hold."""
-    for h, w in [(72, 100), (100, 130)]:
-        cfg = RenderConfig(height=h, width=w, fov=45)
-        tv, tn, tc = tiny_scene(t=20, seed=5)
-        angles = multiview.turntable_angles(4)
-        p1 = multiview.sequence_capacity(tv, tn, angles, None, cfg)
-        want = np.asarray(multiview.render_turntable_pallas(
-            tv, tn, tc, angles, cfg, p_cap=p1, interpret=True))
-        assert want.shape == (4, h, w, 3)
-        p2 = multiview.sequence_capacity(tv, tn, angles, None, cfg,
-                                         view_batch=2)
-        got = np.asarray(multiview.render_turntable_pallas(
-            tv, tn, tc, angles, cfg, p_cap=p2, interpret=True,
-            view_batch=2))
-        np.testing.assert_array_equal(got, want)
+    ref, need_ref = multiview.render_turntable_sharded(
+        big, tn, tc, angles, CONFIG, mesh, backend="jnp",
+        light_direction=None, check_capacity=True)
+    assert int(need_ref) > 32, "scene too small to exercise overflow"
+    repaired, _need = multiview.render_turntable_sharded(
+        big, tn, tc, angles, CONFIG, mesh, backend="jnp", cap=32,
+        light_direction=None, check_capacity=True)
+    np.testing.assert_array_equal(np.asarray(repaired), np.asarray(ref))
+    _trunc, need_off = multiview.render_turntable_sharded(
+        big, tn, tc, angles, CONFIG, mesh, backend="jnp", cap=32,
+        light_direction=None, check_capacity=True, auto_resize=False)
+    assert int(need_off) > 32
 
 
 def test_renderer_render_sequence_wrapper():
@@ -355,80 +155,26 @@ def test_renderer_render_sequence_wrapper():
     angles = multiview.turntable_angles(3)
 
     def make(illum):
-        return Renderer(
-            AdvancedPixelBufferFiller(64, 64, fov=45, backend="pallas",
-                                      interpret=True),
-            illum, SimpleIterator, image_height=64, image_width=64,
-            use_tqdm=False)
+        return Renderer(AdvancedPixelBufferFiller(64, 64, fov=45),
+                        illum, SimpleIterator, image_height=64,
+                        image_width=64, use_tqdm=False)
 
     got = np.asarray(make(GuroIllumination([0.2, 0.1, 1.0]))
                      .render_sequence(_M(), angles))
     assert got.shape == (3, 64, 64, 3) and got.dtype == np.uint8
 
-    p_cap = multiview.sequence_capacity(tv, tn, angles, None, CONFIG)
     shifts = jnp.broadcast_to(jnp.float32([0.0, 0.0, 1.0]), (3, 3))
-    want = np.asarray(multiview.render_sequence_pallas(
-        tv, tn, tc, angles, shifts, CONFIG, p_cap=p_cap, interpret=True,
+    cap = multiview.sequence_capacity(tv, tn, angles, shifts, CONFIG)
+    want = np.asarray(multiview.render_sequence(
+        tv, tn, tc, angles, shifts, CONFIG, cap=cap, backend="jnp",
         post="u8", light_direction=(0.2, 0.1, 1.0)))
     np.testing.assert_array_equal(got, want)
 
     # NoIllumination → unshaded colors (brighter than any lit render)
     raw = np.asarray(make(NoIllumination()).render_sequence(_M(), angles))
-    want_raw = np.asarray(multiview.render_sequence_pallas(
-        tv, tn, tc, angles, shifts, CONFIG, p_cap=p_cap, interpret=True,
+    want_raw = np.asarray(multiview.render_sequence(
+        tv, tn, tc, angles, shifts, CONFIG, cap=cap, backend="jnp",
         post="u8", light_direction=None))
     np.testing.assert_array_equal(raw, want_raw)
     lit = want_raw.sum(-1) > 0
     assert (raw[lit].astype(int) >= got[lit].astype(int)).mean() > 0.99
-
-
-def test_view_batched_over_budget_degrades():
-    """A stacked workload past the packed binner's budgets (image wider
-    than 63 tiles) must size AND render through the un-grouped fallback
-    consistently, matching the per-view sweep."""
-    cfg = RenderConfig(height=32, width=32 * 70, fov=60)
-    rng = np.random.RandomState(2)
-    t = 12
-    tv = jnp.asarray((rng.rand(t, 3, 3) * 0.4 - 0.2).astype(np.float32)
-                     + np.float32([0, 0, 1.0]))
-    tn = jnp.asarray(np.tile(np.float32([0, 0, -1]), (t, 3, 1)))
-    tc = jnp.asarray(rng.rand(t, 3, 3).astype(np.float32) * 255)
-    angles = multiview.turntable_angles(2)
-    p1 = multiview.sequence_capacity(tv, tn, angles, None, cfg)
-    want = np.asarray(multiview.render_turntable_pallas(
-        tv, tn, tc, angles, cfg, p_cap=p1, interpret=True))
-    p2 = multiview.sequence_capacity(tv, tn, angles, None, cfg,
-                                     view_batch=2)
-    got = np.asarray(multiview.render_turntable_pallas(
-        tv, tn, tc, angles, cfg, p_cap=p2, interpret=True, view_batch=2))
-    np.testing.assert_array_equal(got, want)
-
-
-def test_sharded_overflow_detects_resizes_rerenders():
-    """Sharded capacity safety (VERDICT r4 task 7): a deliberately
-    undersized ``p_cap`` under shard_map must be DETECTED via the pmax'd
-    peak-demand scalar and repaired by re-rendering at a grown bucket —
-    the sharded counterpart of the filler's single-chip overflow
-    auto-recovery. The repaired sweep must match a comfortably-sized one
-    bit-for-bit."""
-    tv, tn, tc = tiny_scene(t=48, seed=3)
-    mesh = make_mesh([("views", 4)])
-    angles = multiview.turntable_angles(8)
-
-    # reference: amply sized
-    ref, used_ref = multiview.render_turntable_sharded(
-        tv, tn, tc, angles, CONFIG, mesh, backend="pallas", interpret=True,
-        check_capacity=True)
-    assert int(used_ref) > 256, "scene too small to exercise overflow"
-
-    # undersized: auto_resize must detect (used > p_cap) and re-render
-    repaired, used = multiview.render_turntable_sharded(
-        tv, tn, tc, angles, CONFIG, mesh, backend="pallas", interpret=True,
-        p_cap=256, check_capacity=True)
-    np.testing.assert_array_equal(np.asarray(repaired), np.asarray(ref))
-
-    # and with auto_resize off, the truncation is at least DETECTABLE
-    _trunc, used_off = multiview.render_turntable_sharded(
-        tv, tn, tc, angles, CONFIG, mesh, backend="pallas", interpret=True,
-        p_cap=256, check_capacity=True, auto_resize=False)
-    assert int(used_off) > 256

@@ -7,6 +7,7 @@ import pytest
 
 from cython3dmodelrenderer_tpu.models import obj_io
 from cython3dmodelrenderer_tpu.models.model import Model
+from cython3dmodelrenderer_tpu.utils.png import write_png
 
 
 def write_obj(tmp_path, text, name="m.obj"):
@@ -118,11 +119,9 @@ def test_partial_vt_drops_all_texture_coords(tmp_path):
 
 
 def test_mtllib_texture_loading(tmp_path):
-    import cv2
-
     tex = np.zeros((4, 4, 3), np.uint8)
     tex[:, :, 2] = 200  # red in BGR
-    cv2.imwrite(str(tmp_path / "tex.png"), tex)
+    write_png(str(tmp_path / "tex.png"), tex)
     (tmp_path / "m.mtl").write_text("newmtl a\nmap_Kd tex.png\n")
     path = write_obj(tmp_path, """\
         mtllib m.mtl
@@ -148,12 +147,10 @@ def test_trex_load_counts(trex_path):
 
 
 def test_vertex_color_sampling(tmp_path):
-    import cv2
-
     # 2x2 texture with distinct corners (BGR)
     tex = np.array([[[10, 20, 30], [40, 50, 60]],
                     [[70, 80, 90], [100, 110, 120]]], np.uint8)
-    cv2.imwrite(str(tmp_path / "tex.png"), tex)
+    write_png(str(tmp_path / "tex.png"), tex)
     (tmp_path / "m.mtl").write_text("map_Kd tex.png\n")
     path = write_obj(tmp_path, """\
         mtllib m.mtl

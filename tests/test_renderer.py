@@ -267,12 +267,14 @@ def test_golden_trex(trex_path):
     only tolerated differences are the reference's racy z-resolve and float
     ordering (<0.2% of pixels).
     """
-    import cv2
+    import os
 
-    golden = cv2.imread("/root/reference/output/T-Rex.png")
-    if golden is None:
+    from cython3dmodelrenderer_tpu.utils.png import read_png
+
+    path = "/root/reference/output/T-Rex.png"
+    if not os.path.exists(path):
         pytest.skip("golden render unavailable")
-    golden = golden[::-1]  # file rows are flipped on write
+    golden = read_png(path)[::-1]  # file rows are flipped on write
 
     model = posed_trex(trex_path)
     filler = AdvancedPixelBufferFiller(1024, 1024, fov=45, backend="jnp")
@@ -296,33 +298,32 @@ def test_golden_trex(trex_path):
 
 
 def test_golden_standalone():
-    """SELF-CONTAINED golden: the production Pallas path vs the committed
-    ``assets/golden_sphere.png`` (generated from committed inputs by the
-    pure-XLA oracle backend — ``tools/make_golden.py``). Runs with no
-    reference mount at all; tolerances cover only the documented plane-form
-    vs ratio-form λ rounding at triangle edges."""
-    import cv2
+    """SELF-CONTAINED golden: the tile kernel (interpret mode) through the
+    frame body vs the committed ``assets/golden_sphere.png`` (generated from
+    committed inputs by the pure-XLA oracle backend —
+    ``tools/make_golden.py``). Runs with no reference mount at all."""
+    from cython3dmodelrenderer_tpu import GuroIllumination
+    from cython3dmodelrenderer_tpu.config import RenderConfig
+    from cython3dmodelrenderer_tpu.ops import frame
+    from cython3dmodelrenderer_tpu.utils.png import read_png
+    from tools.make_golden import GOLDEN_BOUNDS, OUT, build_scene, compare
 
-    from tools.make_golden import OUT, render
-
-    golden = cv2.imread(OUT)
-    assert golden is not None, "assets/golden_sphere.png missing — " \
-        "regenerate with python tools/make_golden.py"
-    golden = golden[::-1]          # file rows are flipped on write
-
-    ours = render("pallas", interpret=True)
+    golden = read_png(OUT)[::-1]   # file rows are flipped on write
+    model, colors = build_scene()
+    config = RenderConfig(height=512, width=512, fov=45)
+    tv, tn = model.vertices_by_triangles, model.normals_by_triangles
+    need = int(frame.frame_demand(tv, tn, config, "pallas"))
+    _c, _z, _n, ours, used = frame.render_frame(
+        tv, tn, colors, config=config, backend="pallas",
+        cap=frame.capacity(need, "pallas", config), post="lambert_u8",
+        light=GuroIllumination([0, 0, 1]).light_direction, interpret=True)
+    assert int(used) == need
+    ours = np.asarray(ours)
     assert ours.shape == golden.shape
-    ours_mask = ours.sum(-1) > 15
-    gold_mask = golden.sum(-1) > 15
-    iou = (ours_mask & gold_mask).sum() / (ours_mask | gold_mask).sum()
-    assert iou > 0.998, f"silhouette IoU too low: {iou}"
-    both = ours_mask & gold_mask
-    mae = np.abs(ours[both].astype(np.float32)
-                 - golden[both].astype(np.float32)).mean()
-    assert mae < 0.5, f"color MAE too high: {mae}"
-    frac_big = (np.abs(ours.astype(np.float32) - golden.astype(np.float32))
-                .max(-1) > 20).mean()
-    assert frac_big < 0.002, f"too many >20-diff pixels: {frac_big}"
+    got = compare(ours, golden)
+    assert got["iou"] > GOLDEN_BOUNDS["iou"], got
+    assert got["mae"] < GOLDEN_BOUNDS["mae"], got
+    assert got["frac_big"] < GOLDEN_BOUNDS["frac_big"], got
 
 
 def test_buffer_save_load(tmp_path):
@@ -413,19 +414,3 @@ def test_custom_line_drawer_sees_every_edge(cube_path):
                         use_tqdm=False)
     renderer.render(model, normalize_model=True)
     assert len(drawer.calls) == model.n_triangles() * 3
-
-
-def test_jnp_backend_refuses_huge_fragment_grids(cube_path, monkeypatch):
-    """On TPU the jnp fallback must error cleanly instead of OOM-crashing
-    the worker when the fragment working set explodes (huge-triangle scenes
-    at high resolution)."""
-    import jax
-
-    model = Model.read_model(cube_path)
-    model.scale(100.0)
-    model.shift([0.0, 0.0, 120.0])
-    filler = AdvancedPixelBufferFiller(1024, 1024, fov=90, backend="jnp")
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    with pytest.raises(ValueError, match="pallas"):
-        filler.render_model(model, colors_override=jnp.zeros(
-            (model.n_triangles(), 3, 3), jnp.float32))

@@ -64,8 +64,8 @@ def test_face_normals_convention():
 def oracle_vertex_normals(vertices, faces, tol=1e-6):
     """Sequential transcription of the reference dedup loop (model.py:173-187).
 
-    All-float32 arithmetic (the library's numeric contract — TPUs have no
-    f64), so the dedup comparisons agree bit-for-bit with the device path.
+    All-float32 arithmetic (the library's numeric contract: 64-bit mode
+    is off), so the dedup comparisons agree bit-for-bit with the device path.
     """
     per_vertex = [[] for _ in range(len(vertices))]
     for tri_idx in faces:
